@@ -1,0 +1,153 @@
+"""The port's serving path against the JAX package's: the same weights go
+through ``save_solution``/``load_solution`` here and ``export_solution`` /
+``ServedSolution`` there, and both serve (u, Z = ∇ₓu) at the same (t, X).
+
+For FC-sine nets the port serves through K1, whose plain version (taken for
+CPU tensors) rounds the dot operands to bf16 as the TPU does; the JAX
+artifact on the CPU computes in f32. So sine is compared at bf16 tolerance
+and tanh, which the port serves in f32, at f32 tolerance. The last test runs
+the slice end to end on the flagship BSB problem, cut to a small width."""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dnnpde_tpu.nets import build_network as jax_build_network
+from dnnpde_tpu.ops.rollout_kernel import rollout_paths_xla
+from dnnpde_tpu.serve import export_solution
+from dnnpde_tpu.serve.export import ServedSolution as JaxServed
+from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast
+from dnnpde_tpu_torch.params import from_flax_params
+from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+from dnnpde_tpu_torch.serve import ServedSolution, load_solution, save_solution
+
+D = 4
+LAYERS = [D + 1, 32, 32, 1]
+
+
+def _jax_net(act, seed=0, layers=LAYERS):
+    net = jax_build_network("FC", layers, act)
+    params = net.init(jax.random.PRNGKey(seed), jnp.ones((1, layers[0])))
+    return net, params
+
+
+def _served_pair(act, tmp_path, layers=LAYERS):
+    net, params = _jax_net(act, layers=layers)
+    jax_sol = JaxServed(jax.export.deserialize(export_solution(net, params, layers[0] - 1)))
+    port = from_flax_params(jax.tree.map(np.asarray, params), act, device="cpu")
+    path = tmp_path / "solution.pt"
+    save_solution(str(path), port, layers[0] - 1)
+    return jax_sol, load_solution(str(path), device="cpu")
+
+
+def _request(batch, seed=0, dim=D):
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(size=(batch, 1)).astype(np.float32)
+    X = (1.0 + 0.3 * rng.normal(size=(batch, dim))).astype(np.float32)
+    return t, X
+
+
+def test_save_load_roundtrip(tmp_path):
+    net, params = _jax_net("Sine")
+    port = from_flax_params(jax.tree.map(np.asarray, params), "Sine", device="cpu")
+    path = tmp_path / "s.pt"
+    save_solution(str(path), port, D)
+    sol = load_solution(str(path), device="cpu")
+    assert isinstance(sol, ServedSolution)
+    assert sol.dim == D and sol.layers == tuple(LAYERS) and sol.activation == "sine"
+    assert sol.device == torch.device("cpu")
+    for k, (W, b) in enumerate(zip(sol.Ws, sol.bs)):
+        inner = params["params"][f"Dense_{k}"]["Dense_0"]
+        np.testing.assert_array_equal(W.numpy(), np.asarray(inner["kernel"]))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(inner["bias"]))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 17])
+def test_sine_u_and_grad_matches_jax_served(tmp_path, batch):
+    jax_sol, sol = _served_pair("Sine", tmp_path)
+    t, X = _request(batch, seed=batch)
+    u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+    u, Z = sol.u_and_grad(t, X)
+    assert u.shape == (batch, 1) and Z.shape == (batch, D)
+    assert isinstance(u, np.ndarray) and u.dtype == np.float32
+    # bf16 dot operands against f32: a few bf16 steps of the largest value
+    for a, r in ((u, u_ref), (Z, Z_ref)):
+        scale = float(np.abs(r).max())
+        np.testing.assert_allclose(a / scale, r / scale, rtol=0, atol=2e-2)
+
+
+def test_tanh_u_and_grad_matches_jax_served_in_f32(tmp_path):
+    jax_sol, sol = _served_pair("Tanh", tmp_path)
+    t, X = _request(9)
+    u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+    u, Z = sol.u_and_grad(t, X)
+    np.testing.assert_allclose(u, u_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(Z, Z_ref, rtol=1e-5, atol=1e-6)
+
+
+def test_scalar_time_surface_and_device_path(tmp_path):
+    _, sol = _served_pair("Sine", tmp_path)
+    u, Z = sol.u_and_grad(0.5, np.zeros((7, D)))
+    assert u.shape == (7, 1) and Z.shape == (7, D)
+    np.testing.assert_allclose(u, np.broadcast_to(u[:1], u.shape), rtol=1e-6)
+    xs = np.random.default_rng(0).normal(size=(5, D)).astype(np.float32)
+    surf = sol.surface([0.0, 0.5, 1.0], xs)
+    assert surf.shape == (3, 5)
+    np.testing.assert_allclose(surf[1], sol.u(np.full((5, 1), 0.5), xs)[:, 0], rtol=1e-6, atol=1e-7)
+    u_d, Z_d = sol.u_and_grad_device(0.1, xs)
+    assert isinstance(u_d, torch.Tensor) and u_d.device == torch.device("cpu")
+    u_h, Z_h = sol.u_and_grad(0.1, xs)
+    np.testing.assert_array_equal(u_d.numpy(), u_h)
+    np.testing.assert_array_equal(Z_d.numpy(), Z_h)
+
+
+def test_what_is_not_ported_raises(tmp_path):
+    from dnnpde_tpu_torch.nets import MLP
+
+    net = MLP(LAYERS, "sine", device="cpu")
+    with pytest.raises(NotImplementedError, match="transform"):
+        save_solution(str(tmp_path / "a.pt"), net, D, transform=lambda t, x, u: u)
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        save_solution(str(tmp_path / "a.pt"), net, D, stochastic=True)
+    with pytest.raises(ValueError, match="do not map"):
+        save_solution(str(tmp_path / "a.pt"), net, D + 1)
+
+
+def test_bsb_slice_end_to_end(tmp_path):
+    """The slice as a whole on BSB (D = 4, a narrow FC-Sine net): JAX-made
+    weights served by the port against JAX's served solution, and the fast
+    rollout's column means against the JAX rollout on numpy normals."""
+    dim, N, M = 4, 5, 4096
+    layers = [dim + 1, 64, 64, 64, 1]
+    jax_sol, sol = _served_pair("Sine", tmp_path, layers=layers)
+    prob = BlackScholesBarenblatt(D=dim)
+    X = np.tile(prob.x0.numpy(), (6, 1)) * np.linspace(0.8, 1.2, 6, dtype=np.float32)[:, None]
+    t = np.linspace(0.0, 1.0, 6, dtype=np.float32)[:, None]
+    u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+    u, Z = sol.u_and_grad(t, X)
+    # bf16 operands: the error follows the O(1) activations and weights of
+    # each sum (about 2^-9 of each term), not u, which sits near 0 here
+    np.testing.assert_allclose(u, u_ref, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(Z, Z_ref, rtol=0, atol=1e-2)
+
+    net, params = _jax_net("Sine", layers=layers)
+    port = from_flax_params(jax.tree.map(np.asarray, params), "Sine", device="cpu")
+    trainer = SimpleNamespace(problem=prob, params=port, N=N, mode="FC", activation="Sine",
+                              chol=None)
+    Y = predict_paths_fast(trainer, M=M, seed=3).numpy()
+    rng = np.random.default_rng(4)
+    dWs = (np.sqrt(1.0 / N) * rng.normal(size=(M, N, dim))).astype(np.float32)
+    inner = params["params"]
+    Ws = [inner[f"Dense_{k}"]["Dense_0"]["kernel"] for k in range(len(layers) - 1)]
+    bs = [inner[f"Dense_{k}"]["Dense_0"]["bias"] for k in range(len(layers) - 1)]
+    Y_ref = np.asarray(rollout_paths_xla(Ws, bs, jnp.asarray(prob.x0.numpy()), N=N, dt=1.0 / N,
+                                         mu_c=0.0, sig_c=0.4, dWs=jnp.asarray(dWs)))
+    assert Y.shape == (M, N + 1) and np.isfinite(Y).all()
+    se = np.sqrt(Y.var(axis=0) / M + Y_ref.var(axis=0) / M)
+    assert np.all(np.abs(Y.mean(axis=0) - Y_ref.mean(axis=0)) <= 4 * se + 1e-6)
