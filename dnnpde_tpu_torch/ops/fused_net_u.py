@@ -6,10 +6,12 @@
             r_{k-1} = q_k W_kᵀ;   Z = r₀ (the X-columns)
 
 ``mlp_u_z`` is the plain f32 form for sine, tanh and relu; autograd
-differentiates through it. The ``"cuda"`` backend of ``make_fused_net_u``
-runs the forward on kernel K1 (``ops/mlp_kernel.py``) with bf16 dot operands;
-it has no backward yet (that is kernel K2), so it refuses to run where a
-gradient could be asked for.
+differentiates through it (the ``"torch"`` backend). The ``"cuda"`` backend
+is :class:`FusedMlpUZ`, the counterpart of
+``dnnpde_tpu/ops/fused_net_u.py::fused_mlp_u_z_pallas``: its forward is
+kernel K1 and its backward the hand-derived first-order VJP on kernel K2
+(``ops/mlp_kernel.py``), both with bf16 dot operands. CPU tensors take the
+two kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_fwd
+from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
 from dnnpde_tpu_torch.params import extract_mlp_params
 
 Tensor = torch.Tensor
@@ -47,6 +49,55 @@ def mlp_u_z(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor, act: str = "s
     return u, r
 
 
+class FusedMlpUZ(torch.autograd.Function):
+    """(u (B,1), Z_full (B,n0)) of a sine MLP at x = [t, X], differentiable
+    once: ``FusedMlpUZ.apply(x, *Ws, *bs)``. Only (x, Ws, bs) are saved; the
+    backward recomputes the rest (K2 on CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, *wb: Tensor):
+        L = len(wb) // 2
+        ctx.save_for_backward(x, *wb)
+        return mlp_u_z_fwd(list(wb[:L]), list(wb[L:]), x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u_bar: Tensor, z_bar: Tensor):
+        x, *wb = ctx.saved_tensors
+        L = len(wb) // 2
+        W_bars, b_bars, x_bar = mlp_u_z_bwd(
+            wb[:L], wb[L:], x, u_bar.contiguous(), z_bar.contiguous()
+        )
+        return (x_bar, *W_bars, *b_bars)
+
+
+def fused_u_z(Ws: Sequence[Tensor], bs: Sequence[Tensor], t: Tensor, X: Tensor,
+              act: str = "sine", backend: str = "torch"):
+    """(u, Z) at (t, X) for the MLP with weights (Ws, bs) in the JAX layout
+    (``params.extract_mlp_params``): the fused path without the per-call
+    weight extraction, for callers that evaluate the same weights many
+    times (the rollout)."""
+    x = torch.cat([t, X], dim=-1).contiguous()
+    if backend == "torch":
+        u, z_full = mlp_u_z(Ws, bs, x, act)
+    else:
+        u, z_full = FusedMlpUZ.apply(x, *Ws, *bs)
+    return u, z_full[:, 1:]  # drop the t column
+
+
+def check_fused(activation: str, backend: str) -> str:
+    """Validate a (activation, backend) pair of the fused path; returns the
+    activation's lower-case name."""
+    act = str(activation).lower()
+    if act not in _ACT_DERIVS:
+        raise ValueError(f"fused net_u supports {sorted(_ACT_DERIVS)}, got {act!r}")
+    if backend not in ("torch", "cuda"):
+        raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
+    if backend == "cuda" and act != "sine":
+        raise ValueError("the CUDA fused net_u kernels support sine only")
+    return act
+
+
 def make_fused_net_u(
     layers: Sequence[int], activation: str = "sine", backend: str = "torch"
 ):
@@ -54,32 +105,14 @@ def make_fused_net_u(
     with ``len(layers) - 1`` dense layers.
 
     ``backend``: "torch" (any supported activation, any device, differentiable
-    by autograd) or "cuda" (sine; K1 on CUDA tensors, its plain version on CPU
-    tensors; forward only)."""
-    act = activation.lower()
-    if act not in _ACT_DERIVS:
-        raise ValueError(f"fused net_u supports {sorted(_ACT_DERIVS)}, got {act!r}")
-    if backend not in ("torch", "cuda"):
-        raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
-    if backend == "cuda" and act != "sine":
-        raise ValueError("the CUDA fused net_u kernel supports sine only")
+    by autograd) or "cuda" (sine; K1 forward and K2 backward on CUDA tensors,
+    their plain versions on CPU tensors; differentiable once)."""
+    act = check_fused(activation, backend)
 
     def net_u(net, t: Tensor, X: Tensor):
         Ws, bs = extract_mlp_params(net)
         if len(Ws) != len(layers) - 1:
             raise ValueError(f"net has {len(Ws)} layers, expected {len(layers) - 1}")
-        x = torch.cat([t, X], dim=-1)
-        if backend == "torch":
-            u, z_full = mlp_u_z(Ws, bs, x, act)
-        else:
-            if torch.is_grad_enabled() and (
-                x.requires_grad or any(w.requires_grad for w in (*Ws, *bs))
-            ):
-                raise RuntimeError(
-                    "the 'cuda' fused net_u is forward-only until its backward "
-                    "kernel (K2) is ported; call it under torch.no_grad()"
-                )
-            u, z_full = mlp_u_z_fwd(list(Ws), list(bs), x.contiguous())
-        return u, z_full[:, 1:]  # drop the t column
+        return fused_u_z(Ws, bs, t, X, act, backend)
 
     return net_u

@@ -1,15 +1,20 @@
-"""K1: the fused sine-MLP ``(u, Z_full)`` forward on a hand-written CUDA kernel.
+"""K1 and K2: the fused sine-MLP ``(u, Z_full)`` forward and its hand-derived
+backward on hand-written CUDA kernels.
 
-Counterpart of ``dnnpde_tpu/ops/mlp_kernel.py::mlp_u_z_fwd_pallas``. The
-kernel (``csrc/mlp_u_z_fwd.cu``) runs the forward pass and the Z-sweep for a
-tile of rows with the tile's activations in shared memory; only x, u and Z
-touch device memory. Matmul operands are rounded to bf16 and accumulated in
-f32, as on the TPU.
+Counterparts of ``dnnpde_tpu/ops/mlp_kernel.py::mlp_u_z_fwd_pallas`` and
+``mlp_u_z_bwd_pallas``. K1 (``csrc/mlp_u_z_fwd.cu``) runs the forward pass
+and the Z-sweep for a tile of rows with the tile's activations in shared
+memory; only x, u and Z touch device memory. K2 (``csrc/mlp_u_z_bwd.cu``)
+recomputes them and runs the Z-path adjoint and the u-path backward, with
+per-block partial weight gradients summed in a fixed order by a second
+kernel. Matmul operands are rounded to bf16 and accumulated in f32, as on
+the TPU.
 
-``mlp_u_z_fwd`` launches the kernel for CUDA tensors and raises on anything
-it does not take. For CPU tensors it computes the plain version,
-``mlp_u_z_fwd_reference``: the same bf16-operand math in PyTorch, which
-differs from the kernel only in the order of summation.
+``mlp_u_z_fwd`` and ``mlp_u_z_bwd`` launch their kernels for CUDA tensors
+and raise on anything they do not take. For CPU tensors they compute the
+plain versions, ``mlp_u_z_fwd_reference`` and ``mlp_u_z_bwd_reference``: the
+same bf16-operand math in PyTorch, which differs from the kernels only in
+the order of summation.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 Tensor = torch.Tensor
 
 MAX_LAYERS = 8  # DNNPDE_MAX_LAYERS in csrc/common.cuh
+BWD_TILE = 16  # kTile in csrc/mlp_u_z_bwd.cu: rows per tile of K2
 
 
 def bf16_dot(a: Tensor, w: Tensor) -> Tensor:
@@ -67,16 +73,26 @@ def mlp_u_z_fwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor)
     return u, r
 
 
-def _lib():
+def _lib(name: str):
     from dnnpde_tpu_torch.ops import _build
 
-    lib = _build.load("mlp_u_z_fwd")
-    fn = lib.mlp_u_z_fwd
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+        n_ptrs = {"mlp_u_z_fwd": 6, "mlp_u_z_bwd": 9}[name]
+        n_ints = {"mlp_u_z_fwd": 2, "mlp_u_z_bwd": 3}[name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_rows(name: str, t: Tensor, shape: tuple[int, int], device: torch.device) -> None:
+    if (t.dim() != 2 or tuple(t.shape) != shape or t.dtype != torch.float32
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous float32 {shape} tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
 
 
 def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
@@ -98,7 +114,7 @@ def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
     z = torch.empty((B, n0), dtype=torch.float32, device=x.device)
     if B == 0:
         return u, z
-    lib = _lib()
+    lib = _lib("mlp_u_z_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.mlp_u_z_fwd(
@@ -112,3 +128,90 @@ def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
 
 
 mlp_u_z_fwd.launches = 0
+
+
+def mlp_u_z_bwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
+                          u_bar: Tensor, z_bar: Tensor):
+    """Plain version of K2: (W_bars, b_bars, x_bar) for cotangents
+    (u_bar (B,1), z_bar (B,n0)) of K1's outputs, with bf16 dot operands
+    (the math of ``dnnpde_tpu/ops/fused_net_u.py:14-23``)."""
+    L = len(Ws)
+    a, ps, as_ = x, [], [x]
+    for k in range(L - 1):
+        p = bf16_dot(a, Ws[k]) + bs[k]
+        ps.append(p)
+        a = torch.sin(p)
+        as_.append(a)
+    rs = [None] * L
+    rs[L - 1] = Ws[L - 1][:, 0].expand(x.shape[0], -1)
+    for k in range(L - 2, 0, -1):
+        rs[k] = bf16_dot(rs[k + 1] * torch.cos(ps[k]), Ws[k].T)
+
+    # Z-path adjoint (ascending): c is the cotangent of r_k
+    W_bars, b_bars, pz = [None] * L, [None] * L, [None] * (L - 1)
+    c = z_bar
+    for k in range(L - 1):
+        q_bar = bf16_dot(c, Ws[k])
+        W_bars[k] = bf16_dot(c.T, rs[k + 1] * torch.cos(ps[k]))
+        pz[k] = -q_bar * rs[k + 1] * torch.sin(ps[k])
+        c = q_bar * torch.cos(ps[k])
+
+    # u-path (descending), merged with the Z-path's pz
+    a_bar = bf16_dot(u_bar, Ws[L - 1].T)
+    W_bars[L - 1] = c.sum(0)[:, None] + bf16_dot(as_[L - 1].T, u_bar)
+    b_bars[L - 1] = u_bar.sum(0)
+    for k in range(L - 2, -1, -1):
+        p_bar = a_bar * torch.cos(ps[k]) + pz[k]
+        W_bars[k] = W_bars[k] + bf16_dot(as_[k].T, p_bar)
+        b_bars[k] = p_bar.sum(0)
+        a_bar = bf16_dot(p_bar, Ws[k].T)
+    return tuple(W_bars), tuple(b_bars), a_bar
+
+
+def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
+                u_bar: Tensor, z_bar: Tensor):
+    """(W_bars, b_bars, x_bar): the gradients of <u, u_bar> + <Z_full, z_bar>
+    for a sine MLP at x = [t, X] (B, n0), in the shapes of Ws, bs and x.
+
+    CUDA tensors launch K2 on the current stream (the gradients come back
+    as views of one flat buffer); CPU tensors take
+    :func:`mlp_u_z_bwd_reference`."""
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 (B, n0) tensor, got {x.dtype} {tuple(x.shape)}")
+    B, n0 = x.shape
+    _check_rows("u_bar", u_bar, (B, 1), x.device)
+    _check_rows("z_bar", z_bar, (B, n0), x.device)
+    widths = check_mlp(Ws, bs, x.device)
+    if x.device.type == "cpu":
+        return mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_u_z_bwd runs on CUDA or CPU tensors, got {x.device}")
+    from dnnpde_tpu_torch.ops import _build
+
+    shapes = [tuple(w.shape) for w in Ws] + [tuple(b.shape) for b in bs]
+    sizes = [w.numel() for w in Ws] + [b.numel() for b in bs]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    grads = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
+    x_bar = torch.empty((B, n0), dtype=torch.float32, device=x.device)
+    if B == 0:
+        flat.zero_()
+        return tuple(grads[:len(Ws)]), tuple(grads[len(Ws):]), x_bar
+    # one partial gradient per block: at most one block per SM
+    tiles = -(-B // BWD_TILE)
+    grid = min(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    partial = torch.empty(grid * flat.numel(), dtype=torch.float32, device=x.device)
+    lib = _lib("mlp_u_z_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.mlp_u_z_bwd(
+            x.data_ptr(), u_bar.data_ptr(), z_bar.data_ptr(), x_bar.data_ptr(),
+            flat.data_ptr(), partial.data_ptr(),
+            _build.pointer_array(Ws), _build.pointer_array(bs),
+            _build.int_array(widths), len(Ws), B, grid, stream,
+        )
+    _build.check(lib, code, "mlp_u_z_bwd")
+    mlp_u_z_bwd.launches += 1
+    return tuple(grads[:len(Ws)]), tuple(grads[len(Ws):]), x_bar
+
+
+mlp_u_z_bwd.launches = 0

@@ -64,6 +64,26 @@ class PDEProblem:
         return 50.0
 
     @property
+    def z_penalty_mask(self) -> Optional[Tensor]:
+        """Optional (D,) 0/1 mask of the Z components in the terminal
+        gradient penalty; None → all."""
+        return None
+
+    @property
+    def has_post_step(self) -> bool:
+        """True when :meth:`post_step` is not the identity."""
+        return False
+
+    def post_step(self, t: Tensor, X: Tensor) -> Tensor:
+        """State map applied after every Euler step; identity by default."""
+        return X
+
+    @property
+    def early_exercise(self) -> bool:
+        """True for optimal-stopping problems (none ported yet)."""
+        return False
+
+    @property
     def x0(self) -> Tensor:
         raise NotImplementedError
 
@@ -105,7 +125,14 @@ class PDEProblem:
 
     def Dg(self, X: Tensor) -> Tensor:
         """Gradient of g w.r.t. X, (M, D), by autograd of Σg (g is per-sample,
-        so one reverse pass gives the batched Jacobian)."""
+        so one reverse pass gives the batched Jacobian).
+
+        Under grad mode with an X that carries a graph, the result keeps the
+        graph (``create_graph``), so a loss on Dg(X) is differentiable in
+        whatever X depends on, as ``jax.grad`` of Σg is."""
+        if torch.is_grad_enabled() and X.requires_grad:
+            (grad,) = torch.autograd.grad(self.g(X).sum(), X, create_graph=True)
+            return grad
         with torch.enable_grad():
             x = X.detach().requires_grad_(True)
             (grad,) = torch.autograd.grad(self.g(x).sum(), x)

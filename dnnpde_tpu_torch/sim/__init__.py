@@ -4,5 +4,20 @@ from dnnpde_tpu_torch.sim.brownian import (
     time_grid,
     time_major_batch,
 )
+from dnnpde_tpu_torch.sim.correlation import (
+    CORRELATION_TYPES,
+    cholesky_factor,
+    generate_correlation_matrix,
+    make_positive_definite,
+)
 
-__all__ = ["brownian_increments", "brownian_paths", "time_grid", "time_major_batch"]
+__all__ = [
+    "brownian_increments",
+    "brownian_paths",
+    "time_grid",
+    "time_major_batch",
+    "CORRELATION_TYPES",
+    "cholesky_factor",
+    "generate_correlation_matrix",
+    "make_positive_definite",
+]

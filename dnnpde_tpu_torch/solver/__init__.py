@@ -1,3 +1,15 @@
-from dnnpde_tpu_torch.solver.bsde import make_net_u
+from dnnpde_tpu_torch.solver.bsde import (
+    RolloutResult,
+    SolverConfig,
+    make_loss_fn,
+    make_net_u,
+    make_path_loss_fn,
+)
 
-__all__ = ["make_net_u"]
+__all__ = [
+    "RolloutResult",
+    "SolverConfig",
+    "make_loss_fn",
+    "make_net_u",
+    "make_path_loss_fn",
+]

@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_fwd, mlp_u_z_fwd_reference
+from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ
+from dnnpde_tpu_torch.ops.mlp_kernel import (
+    mlp_u_z_bwd,
+    mlp_u_z_bwd_reference,
+    mlp_u_z_fwd,
+    mlp_u_z_fwd_reference,
+)
 from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths, rollout_paths_reference
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +90,53 @@ def test_k3_matches_plain_version(cuda_device, variant):
     torch.cuda.synchronize()
     assert rollout_paths.launches == before + 1
     _assert_kernel_close(y, rollout_paths_reference(Ws, bs, x0, **kw))
+
+
+FULL = [101, 256, 256, 256, 256, 1]
+
+
+def _full_width(device, B, seed):
+    rng = np.random.default_rng(seed)
+    Ws = _on(device, [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+                      for a, b in zip(FULL[:-1], FULL[1:])])
+    bs = _on(device, [(0.1 * rng.normal(size=(b,))).astype(np.float32) for b in FULL[1:]])
+    x, u_bar, z_bar = _on(device, [rng.normal(size=s).astype(np.float32)
+                                   for s in ((B, FULL[0]), (B, 1), (B, FULL[0]))])
+    return Ws, bs, x, u_bar, z_bar
+
+
+@pytest.mark.parametrize("B", [1, 100, 2048])
+def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
+    Ws, bs, x, u_bar, z_bar = _full_width(cuda_device, B, seed=B)
+    before = mlp_u_z_bwd.launches
+    W_bars, b_bars, x_bar = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    torch.cuda.synchronize()
+    assert mlp_u_z_bwd.launches == before + 2
+    W_ref, b_ref, x_ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+    for a, r in zip([*W_bars, *b_bars, x_bar], [*W_ref, *b_ref, x_ref]):
+        _assert_kernel_close(a, r)
+    # per-block partials summed in a fixed order: no run-to-run change
+    for a, b in zip([*W_bars, *b_bars, x_bar], [*again[0], *again[1], again[2]]):
+        assert torch.equal(a, b)
+
+
+def test_fused_function_gradients_match_plain_function(cuda_device):
+    """FusedMlpUZ on the card (K1 + K2) against the same Function on the
+    CPU (the two plain versions), through a loss that feeds Z back in."""
+    Ws, bs, x, _, _ = _full_width(cuda_device, 64, seed=9)
+
+    def grads(device):
+        wb = [t.detach().to(device).requires_grad_(True) for t in (*Ws, *bs)]
+        x_d = x.detach().to(device).requires_grad_(True)
+        u, z = FusedMlpUZ.apply(x_d, *wb)
+        u2, z2 = FusedMlpUZ.apply((x_d + 0.1 * z).contiguous(), *wb)
+        loss = (u2 * u).sum() + (z2 * z).sum()
+        return [g.cpu() for g in torch.autograd.grad(loss, [x_d, *wb])]
+
+    before = (mlp_u_z_fwd.launches, mlp_u_z_bwd.launches)
+    on_card = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert (mlp_u_z_fwd.launches, mlp_u_z_bwd.launches) == (before[0] + 2, before[1] + 2)
+    for a, r in zip(on_card, grads("cpu")):
+        _assert_kernel_close(a, r)

@@ -40,8 +40,12 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_port_sources_found():
     files = _port_sources()
-    assert len(files) >= 15
+    assert len(files) >= 19
     assert all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"dnnpde_tpu_torch/{m}.py" for m in (
+        "solver/bsde", "sim/correlation", "train/__init__", "train/optimizers", "train/trainer",
+        "ops/fused_net_u", "ops/mlp_kernel")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -74,7 +78,9 @@ def test_default_device_without_cuda_raises(no_cuda):
 
 def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
     from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.serve import load_solution, save_solution
+    from dnnpde_tpu_torch.train import Trainer
     from dnnpde_tpu_torch.sim import time_grid
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -85,6 +91,8 @@ def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
     save_solution(str(path), MLP([3, 8, 1], device="cpu"), 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_solution(str(path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(BlackScholesBarenblatt(D=2), M=4, N=2, layers=[3, 8, 1])
 
 
 def test_no_module_reaches_the_build_at_import():

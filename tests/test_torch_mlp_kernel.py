@@ -95,17 +95,21 @@ def test_make_net_u_keeps_the_graph_under_grad_and_applies_the_transform():
 
 
 def test_cuda_backend_is_forward_only():
+    """The "cuda" backend's forward is K1's plain version on CPU tensors,
+    with and without grad mode; since K2 it is no longer forward-only: under
+    grad mode its outputs carry the kernel pair's backward."""
     net = MLP(LAYERS, "sine", generator=torch.Generator().manual_seed(0), device="cpu")
     t, X = torch.zeros(3, 1), torch.ones(3, LAYERS[0] - 1)
     net_u = make_fused_net_u(LAYERS, "sine", "cuda")
-    with pytest.raises(RuntimeError, match="forward-only"):
-        net_u(net, t, X)
+    u_g, Z_g = net_u(net, t, X)
+    assert u_g.requires_grad and Z_g.requires_grad
     with torch.no_grad():
         u, Z = net_u(net, t, X)
         Ws, bs = extract_mlp_params(net)
         u_ref, z_ref = mlp_u_z_fwd_reference(Ws, bs, torch.cat([t, X], 1))
     torch.testing.assert_close(u, u_ref, rtol=0, atol=0)
     torch.testing.assert_close(Z, z_ref[:, 1:], rtol=0, atol=0)
+    torch.testing.assert_close(u_g.detach(), u, rtol=0, atol=0)
     with pytest.raises(ValueError, match="sine only"):
         make_fused_net_u(LAYERS, "tanh", "cuda")
     with pytest.raises(ValueError, match="backend"):

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +108,36 @@ def test_full_sigma_dw_and_abstract_base():
     with pytest.raises(NotImplementedError):
         PDEProblem().dim
     assert PDEProblem().exact_solution(None, None) is None
+
+
+def _cubic(base, lib):
+    """BSB with a terminal condition whose Hessian depends on X."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Cubic(base):
+        def g(self, X):
+            if lib is jnp:
+                return jnp.sum(X**3 / 3.0 + jnp.sin(X), axis=-1, keepdims=True)
+            return torch.sum(X**3 / 3.0 + torch.sin(X), dim=-1, keepdim=True)
+
+    return Cubic(D=D)
+
+
+@pytest.mark.parametrize("base", ["bsb", "cubic"])
+def test_dg_is_differentiable_in_x_like_jax(inputs, base):
+    """Dg keeps its graph under grad mode (create_graph), as jax.grad of Σg
+    is differentiable: the X-gradient of Σ Dg(X)·v is the Hessian times v."""
+    _, X, _, v, _ = inputs
+    p = BlackScholesBarenblatt(D=D) if base == "bsb" else _cubic(BlackScholesBarenblatt, torch)
+    j = JaxBSB(D=D) if base == "bsb" else _cubic(JaxBSB, jnp)
+    ref = jax.grad(lambda x: jnp.sum(j.Dg(x) * v))(jnp.asarray(X))
+    Xt = torch.from_numpy(X).requires_grad_(True)
+    dg = p.Dg(Xt)
+    assert dg.requires_grad
+    (hv,) = torch.autograd.grad(torch.sum(dg * torch.from_numpy(v)), Xt)
+    _close(hv, ref)
+    with torch.no_grad():
+        plain = p.Dg(Xt)
+    assert not plain.requires_grad
+    _close(plain, j.Dg(jnp.asarray(X)))
+    _close(dg, j.Dg(jnp.asarray(X)))
