@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training and serving paths on one NVIDIA GPU and
-check its kernels.
+"""Drive the PyTorch port's training, serving and basket-call paths on one
+NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,11 @@ built for CUDA. It
    13056}; K2 (``mlp_u_z_bwd``) for B in {1, 100, 2048}, where two launches
    on the same inputs must also agree bit for bit; K3 (``rollout_paths``)
    at M = 16384, N = 50, D = 100 with the BSB coefficients, in both its
-   explicit-dW and its seed variant;
+   explicit-dW and its seed variant; K4 (``gbm_terminal``) at M = 131072,
+   N = 50, D = 100, uncorrelated and correlated, value by value, bitwise
+   across two launches and apart across two seeds, then the statistics
+   checks of ``scripts/verify_tpu_kernels.py`` (mean, log-std,
+   correlation, and the K4 basket price against Black-Scholes);
 4. holds one full-width training step on the kernels (``fused_net_u="cuda"``)
    against the f32 autograd step (``"torch"``): loss and every gradient;
 5. drives the training path through the user entry point: ``Trainer`` on
@@ -26,14 +30,25 @@ built for CUDA. It
 6. drives the serving path from the trained ``Trainer``: ``save_solution``
    -> ``load_solution`` -> ``u_and_grad`` at batches 1, 100 and 4096 and
    one ``surface``, then ``predict_paths_fast`` with M = 16384, N = 50; the
-   launch counters of K1 and K3 are set to 0 just before and must have
-   risen just after; the outputs are checked against the plain autograd
-   ``make_net_u`` and the plain rollout;
-7. times training (iterations/s at M = 100, 512, 2048 on both paths), the
-   serving requests (host clock to result), then each kernel, its plain
-   version and one PyTorch call that computes the same function (the
-   library yardstick, which the port never calls), and prints one JSON
-   line of kernels and, last, the device line.
+   launch counts of K1 and K3 must have risen; the outputs are checked
+   against the plain autograd ``make_net_u`` and the plain rollout;
+7. drives the basket-call path: ``Trainer`` on BasketCallOption(D=100)
+   for 400 iterations on K1 + K2 (exactly 51 x 400 launches each, the mean
+   logged loss must fall 100x), the CLI's oracle ``basket_call_mc`` (200k
+   paths) beside ``fused_basket_call_mc`` on K4 (131072 paths; the two
+   within 4 combined standard errors), |Y0 - oracle| must halve,
+   ``compute_greeks`` at x0 and at 16 states beside ``basket_delta_mc``,
+   and ``predict_paths_fast`` through K3 with (mu_c, sig_c) = (0.05, 0.2)
+   against the plain rollout;
+
+   on each of the three paths all four launch counters are set to 0 just
+   before it runs and read just after, and the kernels line reports those
+   counts path by path;
+8. times training (iterations/s at M = 100, 512, 2048 on both paths, and
+   the basket run), the serving requests and both oracles (host clock to
+   result), then each kernel, its plain version and one PyTorch call that
+   computes the same function (the library yardstick, which the port never
+   calls), and prints one JSON line of kernels and, last, the device line.
 
 Any failure ends the script with a non-zero exit code and no result line.
 """
@@ -69,10 +84,26 @@ REL_TOL = 1e-2
 MEAN_REL_TOL = 1e-4
 SERVE_REL_TOL = 2e-2  # bf16-operand kernel vs f32 autograd, relative to max|f32|
 STEP_REL_TOL = 2e-2  # loss and gradients, kernel step vs f32 step, relative to max|f32|
+BASKET_FLIP_TOL = 1e-3  # the basket's paths: largest difference, relative to sum|W_L|
 
-# H100 SXM data sheet, dense: bf16 tensor cores and HBM3
+# K4 against its plain version, value by value, relative to each value: both
+# draw the same Philox stream and sum, correlate and round in the same order;
+# what differs is the last place of libdevice's logf/sincosf/expf against
+# PyTorch's log/sin/cos/exp, carried through the 50-term sum and amplified by
+# exp (~1e-7 expected). One wrong normal moves a value by about σ√dt ≈ 3e-2.
+K4_RTOL = 1e-5
+K4_M = 131072  # scripts/verify_tpu_kernels.py's shape
+BASKET_ORACLE_PATHS = 200_000  # the CLI's oracle for --problem basket
+BASKET_DELTA_PATHS = 100_000
+BASKET_GREEK_BATCH = 16
+
+# H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+SMS = 132
+SFU_PER_CLOCK = 16  # per SM: special-function results (log, sqrt, sin, cos, exp)
+IMUL_PER_CLOCK = 64  # per SM: 32-bit integer multiplies
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -86,18 +117,43 @@ def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(float(ref.abs().max()), 1e-30)
 
 
-def _compare(name: str, a: torch.Tensor, ref: torch.Tensor) -> float:
-    """Hold a kernel's output against its plain version; returns max |a - ref|."""
+def _compare(name: str, a: torch.Tensor, ref: torch.Tensor,
+             max_abs_tol: float | None = None) -> float:
+    """Hold a kernel's output against its plain version: the largest
+    difference within REL_TOL of max |ref| (or within ``max_abs_tol``), the
+    mean within MEAN_REL_TOL of max |ref|; returns max |a - ref|."""
     d = (a - ref).abs()
     scale = max(float(ref.abs().max()), 1e-30)
     err, rel, mean_rel = float(d.max()), float(d.max()) / scale, float(d.mean()) / scale
     frac = float((d > 1e-6 * scale).float().mean())
-    print(f"{name}: max|d|={err:.3e} rel {rel:.3e} (tol {REL_TOL:g}), mean rel {mean_rel:.3e} "
+    max_tol = REL_TOL * scale if max_abs_tol is None else max_abs_tol
+    print(f"{name}: max|d|={err:.3e} (tol {max_tol:.3e}) rel {rel:.3e}, mean rel {mean_rel:.3e} "
           f"(tol {MEAN_REL_TOL:g}), share above 1e-6 rel {frac:.3e}")
     _require(a.shape == ref.shape, f"{name}: shape {tuple(a.shape)} != {tuple(ref.shape)}")
     _require(bool(torch.isfinite(a).all()), f"{name}: non-finite values")
-    _require(rel <= REL_TOL and mean_rel <= MEAN_REL_TOL, f"{name} disagrees with its plain version")
+    _require(err <= max_tol and mean_rel <= MEAN_REL_TOL,
+             f"{name} disagrees with its plain version")
     return err
+
+
+def _counted_kernels():
+    """The four kernel wrappers, whose ``launches`` count their launches."""
+    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
+    from dnnpde_tpu_torch.ops.path_kernel import gbm_terminal
+    from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths
+
+    return (mlp_u_z_fwd, mlp_u_z_bwd, rollout_paths, gbm_terminal)
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path runs."""
+    for k in _counted_kernels():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count, just after a path ran."""
+    return {k.__name__: k.launches for k in _counted_kernels()}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -222,6 +278,17 @@ def time_k1(Ws, bs, device, B: int = 4096) -> dict:
         xb = torch.cat(requests(b, device, seed=b), dim=1).contiguous()
         by_batch[b] = time_ms(lambda: mlp_u_z_fwd(Ws, bs, xb), iters=50)
     print("K1 kernel ms by batch: " + json.dumps(by_batch))
+    row = _k1_row(Ws, bs, B, ms, plain_ms, library_ms)
+    # the training path's shape: 51 launches per iteration at B = M = 100
+    x = torch.cat(requests(TRAIN_M, device, seed=8), dim=1).contiguous()
+    row_m = _k1_row(Ws, bs, TRAIN_M, time_ms(lambda: mlp_u_z_fwd(Ws, bs, x), iters=50),
+                    time_ms(lambda: mlp_u_z_fwd_reference(Ws, bs, x), iters=50),
+                    time_ms(lambda: library_u_z(Wb, bb, x), iters=50))
+    print(f"K1 at B={TRAIN_M}: " + json.dumps(row_m))
+    return row
+
+
+def _k1_row(Ws, bs, B, ms, plain_ms, library_ms) -> dict:
     L = len(Ws)
     flops = 2 * B * (_macs(LAYERS, L) + _macs(LAYERS, L - 1))
     nbytes = 4 * B * (2 * LAYERS[0] + 1) + _weight_bytes(Ws, bs)
@@ -310,9 +377,10 @@ def time_k2(Ws, bs, device) -> dict:
 # ---- K3 -------------------------------------------------------------------
 
 
-def library_rollout(Wb, bb, x0, N, dt, mu_c, sig_c, M, gen):
-    """cuBLAS yardstick for K3: the same rollout with torch.randn increments
-    and a bf16 matmul chain per step."""
+def library_rollout(Wb, bb, x0, N, dt, mu_c, sig_c, M, gen, dWs=None):
+    """cuBLAS yardstick for K3: the same rollout with a bf16 matmul chain per
+    step, on the increments ``dWs`` (M, N, D) when given, else on
+    torch.randn increments."""
     X = x0.reshape(1, -1).expand(M, -1)
     ys = []
     for n in range(N + 1):
@@ -321,7 +389,10 @@ def library_rollout(Wb, bb, x0, N, dt, mu_c, sig_c, M, gen):
             a = torch.sin(torch.addmm(b, a, W))
         ys.append(torch.addmm(bb[-1], a, Wb[-1]))
         if n < N:
-            dw = (dt ** 0.5) * torch.randn(X.shape, device=X.device, generator=gen)
+            if dWs is None:
+                dw = (dt ** 0.5) * torch.randn(X.shape, device=X.device, generator=gen)
+            else:
+                dw = dWs[:, n]
             X = X + (mu_c * dt) * X + sig_c * X * dw
     return torch.cat(ys, 1)
 
@@ -365,8 +436,135 @@ def time_k3(Ws, bs, x0, dWs, device, M=M_PATHS, N=N_STEPS) -> tuple[dict, dict]:
         lambda: library_rollout(Wb, bb, x0, N, kw["dt"], 0.0, 0.4, M, gen), iters=3, warmup=1
     )
     rows["seed"]["library_ms"] = library_ms
-    rows["dWs"]["library_ms"] = None  # the yardstick draws its own increments
+    rows["dWs"]["library_ms"] = time_ms(
+        lambda: library_rollout(Wb, bb, x0, N, kw["dt"], 0.0, 0.4, M, gen, dWs=dWs),
+        iters=3, warmup=1,
+    )
     return rows["seed"], rows["dWs"]
+
+
+# ---- K4 -------------------------------------------------------------------
+
+
+def k4_cases(device) -> dict:
+    """scripts/verify_tpu_kernels.py's two K4 calls: (seed, S0, r, sigma, T,
+    N, M, chol) uncorrelated and with a random correlation matrix."""
+    from dnnpde_tpu_torch.sim import cholesky_factor, generate_correlation_matrix
+
+    C = generate_correlation_matrix(D, "random_correlation", seed=1)
+    L = torch.from_numpy(cholesky_factor(C)).float().to(device)
+    ones = torch.ones(D, device=device)
+    return {
+        "uncorrelated": ((0, ones, 0.05, 0.2, 1.0, N_STEPS, K4_M), None),
+        "correlated": ((1, ones, 0.0, 0.3, 1.0, N_STEPS, K4_M), L),
+        "C": C,
+    }
+
+
+def check_k4(device) -> dict:
+    """K4 value by value against its plain version in both variants, two
+    launches bitwise, two seeds apart, then verify_tpu_kernels.py's
+    statistics checks."""
+    from dnnpde_tpu_torch.numerics import black_scholes_call
+    from dnnpde_tpu_torch.ops.path_kernel import (
+        fused_basket_call_mc,
+        gbm_terminal,
+        gbm_terminal_reference,
+    )
+
+    cases = k4_cases(device)
+    worst, out = 0.0, {}
+    for name in ("uncorrelated", "correlated"):
+        args, L = cases[name]
+        st = gbm_terminal(*args, chol=L)
+        again = gbm_terminal(*args, chol=L)
+        ref = gbm_terminal_reference(*args, chol=L)
+        _require(st.shape == (K4_M, D) and bool(torch.isfinite(st).all()), f"K4 {name} output")
+        rel = float(((st - ref).abs() / ref.abs()).max())
+        err = float((st - ref).abs().max())
+        same = float((st == ref).float().mean())
+        print(f"K4 {name} M={K4_M} N={N_STEPS} D={D}: max|d|={err:.3e}, max rel {rel:.3e} "
+              f"(tol {K4_RTOL:g} of each value), share bitwise equal {same:.4f}")
+        _require(rel <= K4_RTOL, f"K4 {name} disagrees with its plain version")
+        _require(torch.equal(st, again), f"K4 {name}: two launches differ")
+        worst = max(worst, err)
+        out[name] = st
+    _require(not torch.allclose(out["uncorrelated"], gbm_terminal(1, *cases["uncorrelated"][0][1:])),
+             "K4: seeds 0 and 1 give the same values")
+
+    ST = out["uncorrelated"].double()
+    logs = torch.log(ST)
+    mean, se = float(ST.mean()), float(ST.std()) / (K4_M * D) ** 0.5
+    print(f"K4 mean S_T {mean:.6f} (expect {np.exp(0.05):.6f}, 4 SE {4 * se:.2e}); "
+          f"std log S_T {float(logs.std()):.6f} (expect 0.2, tol 2e-3)")
+    _require(abs(mean - np.exp(0.05)) < 4 * se, "K4 mean S_T")
+    _require(abs(float(logs.std()) - 0.2) < 2e-3, "K4 log-std")
+    emp = np.corrcoef(torch.log(out["correlated"]).double().cpu().numpy().T)
+    corr_err = float(np.abs(emp - cases["C"]).max())
+    print(f"K4 correlation max err {corr_err:.4f} (tol 0.05)")
+    _require(corr_err < 0.05, "K4 correlation")
+    p, se = fused_basket_call_mc(2, torch.ones(1, device=device), 1.0, 1.0, 0.05, 0.2,
+                                 num_paths=524288, payoff="sum")
+    exact = float(black_scholes_call(1.0, 1.0, 1.0, 0.05, 0.2, device=device))
+    print(f"K4 MC price {float(p):.6f} +- {float(se):.6f} vs Black-Scholes {exact:.6f}")
+    _require(abs(float(p) - exact) < 4 * float(se), "K4 MC price vs Black-Scholes")
+    return {"max_abs_err": worst}
+
+
+def library_gbm_terminal(S0, r, sigma, T, N, M, L):
+    """Yardstick for K4: the JAX package's non-TPU math as one PyTorch
+    expression, S0·exp(N·drift + σ√dt·(√N·randn(M, D)) @ Lᵀ)."""
+    dt = T / N
+    z = (N ** 0.5) * torch.randn((M, S0.shape[0]), device=S0.device)
+    if L is not None:
+        z = z @ L.T
+    return S0 * torch.exp(N * (r - 0.5 * sigma**2) * dt + sigma * dt**0.5 * z)
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def k4_bound(M: int, N: int, D: int, L, clock_hz: float) -> dict:
+    """The least time of K4's work on an H100: the largest of its bytes over
+    HBM, its transcendentals over the SFUs, Philox's integer multiplies and
+    the correlation's f32 flops (lower triangle only)."""
+    normals = M * N * D
+    sfu = 2 * normals + M * D  # ½ log + ½ sqrt + sin or cos per normal; exp per output
+    calls = 2 * (M // 2) * N * ((D + 3) // 4)  # two Philox calls per (pair, step, group)
+    imul = 40 * calls  # 10 rounds x 4 32-bit multiplies
+    flops = 0 if L is None else M * D * (D + 1)
+    nbytes = 4 * M * D + 3 * 4 * D + (0 if L is None else 4 * D * D)
+    terms = {
+        "bytes": nbytes / PEAK_BYTES,
+        "sfu": sfu / (SMS * SFU_PER_CLOCK * clock_hz),
+        "imul": imul / (SMS * IMUL_PER_CLOCK * clock_hz),
+        "f32_flops": flops / PEAK_F32_FLOPS,
+    }
+    by = max(terms, key=terms.get)
+    return {"bound_ms": 1e3 * terms[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_term": by, "terms_ms": {k: 1e3 * v for k, v in terms.items()}}
+
+
+def time_k4(device) -> tuple[dict, dict]:
+    from dnnpde_tpu_torch.ops.path_kernel import gbm_terminal, gbm_terminal_reference
+
+    clock = sm_clock_hz()
+    rows = {}
+    for name in ("uncorrelated", "correlated"):
+        args, L = k4_cases(device)[name]
+        seed, S0, r, sigma, T, N, M = args
+        ms = time_ms(lambda: gbm_terminal(*args, chol=L), iters=10)
+        plain_ms = time_ms(lambda: gbm_terminal_reference(*args, chol=L), iters=2, warmup=1)
+        library_ms = time_ms(lambda: library_gbm_terminal(S0, r, sigma, T, N, M, L), iters=10)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      **k4_bound(M, N, S0.shape[0], L, clock), "shape": f"M={M} N={N} D={D} {name}"}
+    print(f"K4 by variant (SM clock {clock / 1e6:.0f} MHz): " + json.dumps(rows))
+    return rows["uncorrelated"], rows["correlated"]
 
 
 # ---- the training path ------------------------------------------------------
@@ -407,8 +605,7 @@ def check_train_step(net, device) -> None:
 
 def drive_training(device) -> dict:
     """The training path, through the user entry point. Returns the launch
-    counts of K1 and K2 in this run and the trained Trainer."""
-    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
+    counts of every kernel in this run and the trained Trainer."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig
     from dnnpde_tpu_torch.train import Trainer
@@ -421,14 +618,13 @@ def drive_training(device) -> dict:
                       solver_config=SolverConfig(fused_net_u="cuda", remat=False), seed=1,
                       device=device)
     y0_init = float(trainer.evaluate_u([[0.0]], prob.x0[None])[0][0, 0])
-    mlp_u_z_fwd.launches = 0
-    mlp_u_z_bwd.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = trainer.train(TRAIN_ITERS, 1e-3, "Adam", log_every=TRAIN_LOG_EVERY)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    counts = {"mlp_u_z_fwd": mlp_u_z_fwd.launches, "mlp_u_z_bwd": mlp_u_z_bwd.launches}
+    counts = read_counts()
     print(f"training path: {TRAIN_ITERS} iterations in {seconds:.3f} s, "
           f"launches {json.dumps(counts)}")
     print(f"training: mean logged loss {json.dumps(res.graph[1].tolist())}; "
@@ -439,7 +635,8 @@ def drive_training(device) -> dict:
 
 def check_training(run) -> None:
     per_step = TRAIN_ITERS * (N_STEPS + 1)
-    for name, n in run["counts"].items():
+    for name in ("mlp_u_z_fwd", "mlp_u_z_bwd"):
+        n = run["counts"][name]
         _require(n == per_step, f"the training path launched {name} {n} times, not {per_step}")
     losses = run["graph"][1]
     _require(bool(np.isfinite(losses).all()), "non-finite training loss")
@@ -477,10 +674,9 @@ def time_training(device) -> dict:
 
 def drive_serving(trainer, device) -> dict:
     """The serving path from a trained ``Trainer``, through the user entry
-    points. Returns the launch counts of K1 and K3 in this run and what it
-    served."""
-    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_fwd
-    from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast, rollout_paths
+    points. Returns the launch counts of every kernel in this run and what
+    it served."""
+    from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.serve import load_solution, save_solution
 
@@ -490,8 +686,7 @@ def drive_serving(trainer, device) -> dict:
     t_grid = torch.linspace(0.0, 1.0, 51)
     x_grid = requests(256, "cpu", seed=99)[1]
 
-    mlp_u_z_fwd.launches = 0
-    rollout_paths.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/bsb100_fc_sine.pt"
@@ -503,7 +698,7 @@ def drive_serving(trainer, device) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    counts = {"mlp_u_z_fwd": mlp_u_z_fwd.launches, "rollout_paths": rollout_paths.launches}
+    counts = read_counts()
     print(f"serving path: {seconds:.3f} s, launches {json.dumps(counts)}")
     return {"counts": counts, "served": served, "surface": surface, "Y": Y,
             "reqs": reqs, "trainer": trainer, "sol": sol}
@@ -531,7 +726,8 @@ def check_serving(run, device) -> None:
     from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths_reference
     from dnnpde_tpu_torch.solver import make_net_u
 
-    for name, n in run["counts"].items():
+    for name in ("mlp_u_z_fwd", "rollout_paths"):
+        n = run["counts"][name]
         _require(n > 0, f"the serving path launched {name} {n} times")
     net = run["trainer"].params
     net_u = make_net_u(net)
@@ -560,6 +756,130 @@ def check_serving(run, device) -> None:
           f"Y[:, -1] mean {float(Y[:, -1].mean()):.5f}")
     _require(Y.shape == (M_PATHS, N_STEPS + 1), "paths shape")
     _compare("predict_paths_fast vs plain rollout", Y, Y_ref)
+
+
+# ---- the basket path ----------------------------------------------------------
+
+
+def drive_basket(device) -> dict:
+    """The basket-call path through the user entry points: train
+    BasketCallOption(D=100) on K1 + K2, price it with the CLI's Monte-Carlo
+    oracle and with the pricer on K4, take greeks, serve paths through K3.
+    Returns the launch counts of all four kernels in this run and what it
+    computed."""
+    from dnnpde_tpu_torch.evals import compute_greeks
+    from dnnpde_tpu_torch.numerics import basket_call_mc, basket_delta_mc
+    from dnnpde_tpu_torch.ops.path_kernel import fused_basket_call_mc
+    from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast
+    from dnnpde_tpu_torch.pde import BasketCallOption
+    from dnnpde_tpu_torch.solver import SolverConfig
+    from dnnpde_tpu_torch.train import Trainer
+
+    prob = BasketCallOption(D=D)
+    x0 = prob.x0.to(device)
+    oracle_args = (x0, prob.strike, prob.T, prob.r, prob.sigma_bar)
+    trainer = Trainer(prob, M=TRAIN_M, N=N_STEPS, layers=LAYERS,
+                      solver_config=SolverConfig(fused_net_u="cuda", remat=False), seed=1,
+                      device=device)
+    y0_init = float(trainer.evaluate_u([[0.0]], prob.x0[None])[0][0, 0])
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.train(TRAIN_ITERS, 1e-3, "Adam", log_every=TRAIN_LOG_EVERY)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    oracle = basket_call_mc(torch.Generator(device=device).manual_seed(0), *oracle_args,
+                            num_paths=BASKET_ORACLE_PATHS, payoff="mean")
+    fused = fused_basket_call_mc(0, *oracle_args, payoff="mean")
+    rng = torch.Generator().manual_seed(21)
+    t_b = torch.rand((BASKET_GREEK_BATCH, 1), generator=rng)
+    X_b = torch.exp(0.2 * torch.randn((BASKET_GREEK_BATCH, D), generator=rng))
+    greeks_x0 = compute_greeks(trainer, [[0.0]], prob.x0[None])
+    greeks_b = compute_greeks(trainer, t_b, X_b)
+    delta_mc = basket_delta_mc(torch.Generator(device=device).manual_seed(1), *oracle_args,
+                               num_paths=BASKET_DELTA_PATHS)
+    Y = predict_paths_fast(trainer, M=M_PATHS, seed=99)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    counts = read_counts()
+    oracle = tuple(float(v) for v in oracle)
+    fused = tuple(float(v) for v in fused)
+    print(f"basket path: {TRAIN_ITERS} iterations in {seconds:.3f} s "
+          f"({TRAIN_ITERS / seconds:.3f} it/s), launches {json.dumps(counts)}")
+    print(f"basket: mean logged loss {json.dumps(res.graph[1].tolist())}; Y0 {y0_init:.6f} -> "
+          f"{json.dumps(res.y0_history.tolist())}; oracle basket_call_mc "
+          f"{oracle[0]:.6f} +- {oracle[1]:.6f}, fused_basket_call_mc (K4) "
+          f"{fused[0]:.6f} +- {fused[1]:.6f}")
+    print(f"basket greeks at x0: u {greeks_x0[0][0, 0]:.6f}, sum delta "
+          f"{greeks_x0[1].sum():.6f} (basket_delta_mc {float(delta_mc.sum()):.6f}), "
+          f"sum gamma {greeks_x0[2].sum():.6f}")
+    return {"counts": counts, "trainer": trainer, "graph": res.graph, "y0": res.y0_history,
+            "y0_init": y0_init, "oracle": oracle, "fused": fused, "greeks_x0": greeks_x0,
+            "greeks_b": greeks_b, "delta_mc": delta_mc, "Y": Y, "seconds": seconds}
+
+
+def check_basket(run, device) -> None:
+    from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths_reference
+
+    per_step = TRAIN_ITERS * (N_STEPS + 1)
+    for name in ("mlp_u_z_fwd", "mlp_u_z_bwd"):
+        n = run["counts"][name]
+        _require(n == per_step, f"the basket path launched {name} {n} times, not {per_step}")
+    for name in ("gbm_terminal", "rollout_paths"):
+        _require(run["counts"][name] > 0, f"the basket path never launched {name}")
+    losses = run["graph"][1]
+    _require(bool(np.isfinite(losses).all()), "non-finite basket training loss")
+    _require(losses[0] >= 100 * losses[-1],
+             f"basket: mean logged loss fell only {losses[0] / losses[-1]:.2f}x, not 100x")
+    (p1, se1), (p2, se2) = run["oracle"], run["fused"]
+    _require(abs(p1 - p2) < 4 * (se1**2 + se2**2) ** 0.5,
+             f"basket oracles disagree: {p1} +- {se1} vs {p2} +- {se2}")
+    err0, err1 = abs(run["y0_init"] - p1), abs(run["y0"][-1] - p1)
+    print(f"basket |Y0 - oracle|: {err0:.6f} -> {err1:.6f}")
+    _require(err1 <= 0.5 * err0, "basket: |Y0 - oracle| did not halve")
+    for where, (u, delta, gamma), B in (("x0", run["greeks_x0"], 1),
+                                        ("batch", run["greeks_b"], BASKET_GREEK_BATCH)):
+        _require(u.shape == (B, 1) and delta.shape == (B, D) and gamma.shape == (B, D),
+                 f"basket greeks shapes at {where}")
+        _require(bool(np.isfinite(u).all() and np.isfinite(delta).all()
+                      and np.isfinite(gamma).all()), f"basket greeks non-finite at {where}")
+    dmc = run["delta_mc"]
+    _require(dmc.shape == (D,) and bool(torch.isfinite(dmc).all()), "basket_delta_mc")
+    tr = run["trainer"]
+    Ws, bs = weights(tr.params)
+    Y_ref = rollout_paths_reference(
+        Ws, bs, tr.problem.x0.to(device), N=N_STEPS, dt=1.0 / N_STEPS,
+        mu_c=0.05, sig_c=0.2, seed=99, M=M_PATHS,
+    )
+    _require(run["Y"].shape == (M_PATHS, N_STEPS + 1), "basket paths shape")
+    # The basket's u (~0.05) is a small sum of 256 head terms a_i W_L[i]
+    # (|a_i| <= 1) that cancel, so one bf16 flip, which moves a term by up to
+    # 2^-8 |W_L[i]|, is large beside max|u| and the largest difference is
+    # held to BASKET_FLIP_TOL of sum |W_L| instead: about 65 flips of a mean
+    # head term on one value, some 10x the largest difference seen on an
+    # H100 and a fifth of max|u|. The mean stays within MEAN_REL_TOL of
+    # max|u|, which a wrong index or a race on a few percent of paths breaks.
+    head = float(Ws[-1].abs().sum())
+    print(f"basket paths: max|Y| {float(Y_ref.abs().max()):.5f}, head bound sum|W_L| {head:.4f}")
+    _compare("basket predict_paths_fast vs plain rollout (mu_c 0.05, sig_c 0.2)", run["Y"], Y_ref,
+             max_abs_tol=BASKET_FLIP_TOL * head)
+
+
+def time_basket(run, device) -> dict:
+    """The basket path's training rate, and the host time of each oracle
+    call (request to result)."""
+    from dnnpde_tpu_torch.numerics import basket_call_mc
+    from dnnpde_tpu_torch.ops.path_kernel import fused_basket_call_mc
+
+    prob = run["trainer"].problem
+    args = (prob.x0.to(device), prob.strike, prob.T, prob.r, prob.sigma_bar)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return {
+        "train_it_per_s": TRAIN_ITERS / run["seconds"],
+        f"basket_call_mc_{BASKET_ORACLE_PATHS}_ms": host_ms(
+            lambda: basket_call_mc(gen, *args, num_paths=BASKET_ORACLE_PATHS), 5),
+        f"fused_basket_call_mc_{K4_M}_ms": host_ms(lambda: fused_basket_call_mc(0, *args), 5),
+    }
 
 
 def main() -> int:
@@ -595,25 +915,32 @@ def main() -> int:
     k1 = check_k1(Ws, bs, device)
     k2 = check_k2(Ws, bs, device)
     k3 = check_k3(Ws, bs, x0, device)
+    k4 = check_k4(device)
     check_train_step(net, device)
 
     train = drive_training(device)
     check_training(train)
     run = drive_serving(train["trainer"], device)
     check_serving(run, device)
+    basket = drive_basket(device)
+    check_basket(basket, device)
 
     print("training rate: " + json.dumps(time_training(device)))
     print("serving latency: " + json.dumps(time_serving(run)))
+    print("basket path: " + json.dumps(time_basket(basket, device)))
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
     k3.update(k3_seed)
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
+    k4_unc, k4_corr = time_k4(device)
+    k4.update(k4_unc)
+    print("K4 correlated variant: " + json.dumps(k4_corr))
 
-    paths = {"training": train["counts"], "serving": run["counts"]}
+    paths = {"training": train["counts"], "serving": run["counts"], "basket": basket["counts"]}
 
     def launches(name):
-        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        by_path = {p: c[name] for p, c in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
@@ -629,6 +956,10 @@ def main() -> int:
          "source": "dnnpde_tpu_torch/csrc/rollout.cu",
          "replaces": "dnnpde_tpu/ops/rollout_kernel.py:182",
          **launches("rollout_paths"), **k3},
+        {"name": "gbm_terminal", "route": "cuda",
+         "source": "dnnpde_tpu_torch/csrc/gbm_terminal.cu",
+         "replaces": "dnnpde_tpu/ops/path_kernel.py:180",
+         **launches("gbm_terminal"), **k4},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,13 @@ import numpy as np
 import torch
 
 from dnnpde_tpu_torch.ops.mlp_kernel import bf16_dot, check_mlp
-from dnnpde_tpu_torch.pde.problems import BlackScholesBarenblatt
+from dnnpde_tpu_torch.pde.problems import (
+    BasketCallOption,
+    BlackScholesBarenblatt,
+    BSPDETestCase,
+    CallOption1D,
+    CallOptionND,
+)
 
 Tensor = torch.Tensor
 
@@ -186,10 +192,12 @@ rollout_paths.launches = 0
 
 def gbm_coefficients(problem) -> tuple[float, float] | None:
     """(μ_c, σ_c) when the problem's dynamics are GBM-type (μ = μ_c·X,
-    σ = σ_c·diag(X)), else None. Of the GBM family only BSB (0, σ̄) is
-    ported so far."""
+    σ = σ_c·diag(X)), else None: BSB (0, σ̄); the 1D/nD calls, the basket
+    and the BSB test case (r, σ̄)."""
     if isinstance(problem, BlackScholesBarenblatt):
         return 0.0, float(problem.sigma_bar)
+    if isinstance(problem, (CallOption1D, CallOptionND, BasketCallOption, BSPDETestCase)):
+        return float(problem.r), float(problem.sigma_bar)
     return None
 
 

@@ -1,4 +1,17 @@
 from dnnpde_tpu_torch.pde.base import PDEProblem
-from dnnpde_tpu_torch.pde.problems import BlackScholesBarenblatt
+from dnnpde_tpu_torch.pde.problems import (
+    BasketCallOption,
+    BlackScholesBarenblatt,
+    BSPDETestCase,
+    CallOption1D,
+    CallOptionND,
+)
 
-__all__ = ["PDEProblem", "BlackScholesBarenblatt"]
+__all__ = [
+    "PDEProblem",
+    "BlackScholesBarenblatt",
+    "CallOption1D",
+    "CallOptionND",
+    "BasketCallOption",
+    "BSPDETestCase",
+]

@@ -23,3 +23,15 @@ def default_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_of(*xs, device=None) -> torch.device:
+    """``device`` when given; else the device of the first tensor among
+    ``xs``; else the first CUDA card (as :func:`default_device`). Tensors
+    stay where they are; Python numbers and numpy arrays go to the card
+    unless the caller names the CPU."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+    return default_device(device)

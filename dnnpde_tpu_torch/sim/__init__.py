@@ -4,6 +4,7 @@ from dnnpde_tpu_torch.sim.brownian import (
     time_grid,
     time_major_batch,
 )
+from dnnpde_tpu_torch.sim.euler_maruyama import euler_maruyama, gbm_paths
 from dnnpde_tpu_torch.sim.correlation import (
     CORRELATION_TYPES,
     cholesky_factor,
@@ -20,4 +21,6 @@ __all__ = [
     "cholesky_factor",
     "generate_correlation_matrix",
     "make_positive_definite",
+    "euler_maruyama",
+    "gbm_paths",
 ]

@@ -20,7 +20,9 @@ from dnnpde_tpu_torch.ops.mlp_kernel import (
     mlp_u_z_fwd,
     mlp_u_z_fwd_reference,
 )
+from dnnpde_tpu_torch.ops.path_kernel import gbm_terminal, gbm_terminal_reference
 from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths, rollout_paths_reference
+from dnnpde_tpu_torch.sim import cholesky_factor, generate_correlation_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +142,40 @@ def test_fused_function_gradients_match_plain_function(cuda_device):
     assert (mlp_u_z_fwd.launches, mlp_u_z_bwd.launches) == (before[0] + 2, before[1] + 2)
     for a, r in zip(on_card, grads("cpu")):
         _assert_kernel_close(a, r)
+
+
+# K4 against its plain version, value by value: both draw the same Philox
+# stream and sum, correlate and round in the same order; what differs is the
+# last place of libdevice's logf/sincosf/expf against PyTorch's log/sin/cos/exp,
+# carried through an N-term sum and amplified by exp. 1e-5 of each value leaves
+# room for that; one wrong normal moves a value by about σ√dt ≈ 3e-2.
+K4_RTOL = 1e-5
+
+
+# D = 256: L (256 KB) no longer fits in shared memory beside the z-tile and is
+# read from global memory; D = 1024: the z-tile of 32 path pairs (256 KB) does
+# not fit either and the launcher halves it to 16 pairs.
+@pytest.mark.parametrize("D", [1, 7, 100, 256, 1024])
+@pytest.mark.parametrize("correlated", [False, True])
+def test_k4_matches_plain_version_and_repeats_bitwise(cuda_device, D, correlated):
+    M, N = 2048, 12
+    rng = np.random.default_rng(D)
+    S0 = rng.uniform(0.5, 1.5, size=D).astype(np.float32)
+    sigma = rng.uniform(0.1, 0.4, size=D).astype(np.float32)
+    chol = None
+    if correlated:
+        chol = cholesky_factor(generate_correlation_matrix(D, "random_correlation", seed=D))
+    args = (2024, S0, 0.05, sigma, 1.0, N, M)
+    before = gbm_terminal.launches
+    out = gbm_terminal(*args, chol=chol, device=cuda_device)
+    again = gbm_terminal(*args, chol=chol, device=cuda_device)
+    other = gbm_terminal(2025, *args[1:], chol=chol, device=cuda_device)
+    torch.cuda.synchronize()
+    assert gbm_terminal.launches == before + 3
+    ref = gbm_terminal_reference(*args, chol=chol, device=cuda_device)
+    assert out.shape == (M, D) and bool(torch.isfinite(out).all())
+    assert float(((out - ref).abs() / ref.abs()).max()) <= K4_RTOL
+    assert torch.equal(out, again)
+    assert not torch.allclose(out, other)
+    # the values do not depend on tile_m
+    assert torch.equal(out, gbm_terminal(*args, chol=chol, tile_m=64, device=cuda_device))

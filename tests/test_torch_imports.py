@@ -40,12 +40,14 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_port_sources_found():
     files = _port_sources()
-    assert len(files) >= 19
+    assert len(files) >= 28
     assert all(f.exists() for f in files)
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"dnnpde_tpu_torch/{m}.py" for m in (
         "solver/bsde", "sim/correlation", "train/__init__", "train/optimizers", "train/trainer",
-        "ops/fused_net_u", "ops/mlp_kernel")} <= names
+        "ops/fused_net_u", "ops/mlp_kernel", "ops/path_kernel", "sim/euler_maruyama",
+        "numerics/black_scholes", "numerics/monte_carlo", "evals/metrics", "evals/greeks",
+        "evals/predictions")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -104,3 +106,50 @@ def test_no_module_reaches_the_build_at_import():
         names = [a.name for n in top for a in n.names] + [
             n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
         assert not any(n.endswith("_build") for n in names), path
+
+
+def test_basket_slice_entry_points_without_cuda_raise(no_cuda):
+    """The basket slice's entry points resolve ``device=None`` to the card
+    and raise without one; naming the CPU is the only way onto it."""
+    import numpy as np
+
+    from dnnpde_tpu_torch.numerics import (
+        basket_analytical_approx,
+        black_scholes_call,
+        geometric_asian_call,
+        lookback_call_floating,
+    )
+    from dnnpde_tpu_torch.ops.path_kernel import (
+        fused_basket_call_mc,
+        gbm_terminal,
+        gbm_terminal_reference,
+    )
+    from dnnpde_tpu_torch.pde import BasketCallOption
+    from dnnpde_tpu_torch.train import Trainer
+
+    calls = [
+        lambda: gbm_terminal(0, np.ones(2), 0.05, 0.2, 1.0, 2, 256),
+        lambda: gbm_terminal_reference(0, np.ones(2), 0.05, 0.2, 1.0, 2, 256),
+        lambda: fused_basket_call_mc(0, np.ones(2), 1.0, 1.0, 0.05, 0.2, num_paths=256),
+        lambda: black_scholes_call(1.0, 1.0, 1.0, 0.05, 0.2),
+        lambda: basket_analytical_approx(np.ones(2), 1.0, 1.0, 0.05, 0.2, 2),
+        lambda: geometric_asian_call(1.0, 1.0, 1.0, 0.05, 0.2, 4),
+        lambda: lookback_call_floating(1.0, 1.0, 0.05, 0.2),
+        lambda: Trainer(BasketCallOption(D=2), M=4, N=2, layers=[3, 8, 1]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert gbm_terminal(0, np.ones(2), 0.05, 0.2, 1.0, 2, 256, device="cpu").shape == (256, 2)
+    assert float(black_scholes_call(1.0, 1.0, 1.0, 0.05, 0.2, device="cpu")) > 0
+
+
+def test_monte_carlo_runs_on_the_generators_device(no_cuda):
+    """The Monte-Carlo pricers take no device: a CPU generator is the
+    caller asking for the CPU."""
+    from dnnpde_tpu_torch.numerics import basket_call_mc, hjb_exact_mc
+
+    gen = torch.Generator().manual_seed(0)
+    p, se = basket_call_mc(gen, [1.0, 1.0], 1.0, 1.0, 0.05, 0.2, num_paths=64)
+    assert p.device.type == se.device.type == "cpu"
+    assert hjb_exact_mc(gen, 0.5, [0.0, 0.0], num_samples=16).device.type == "cpu"
