@@ -22,7 +22,8 @@ built for CUDA. It
    checks of ``scripts/verify_tpu_kernels.py`` (mean, log-std,
    correlation, and the K4 basket price against Black-Scholes);
 4. holds one full-width training step on the kernels (``fused_net_u="cuda"``)
-   against the f32 autograd step (``"torch"``): loss and every gradient;
+   against the f32 autograd step (``"torch"``): loss and every gradient, on
+   BSB-100 and on the basket call;
 5. drives the training path through the user entry point: ``Trainer`` on
    BSB-100, M = 100, N = 50, ``.train(400, 1e-3, "Adam")``; K1 and K2 must
    launch exactly 51 x 400 times, the mean logged loss must fall 10x and
@@ -34,7 +35,7 @@ built for CUDA. It
    against the plain autograd ``make_net_u`` and the plain rollout;
 7. drives the basket-call path: ``Trainer`` on BasketCallOption(D=100)
    for 400 iterations on K1 + K2 (exactly 51 x 400 launches each, the mean
-   logged loss must fall 100x), the CLI's oracle ``basket_call_mc`` (200k
+   logged loss must fall 10x), the CLI's oracle ``basket_call_mc`` (200k
    paths) beside ``fused_basket_call_mc`` on K4 (131072 paths; the two
    within 4 combined standard errors), |Y0 - oracle| must halve,
    ``compute_greeks`` at x0 and at 16 states beside ``basket_delta_mc``,
@@ -85,6 +86,9 @@ MEAN_REL_TOL = 1e-4
 SERVE_REL_TOL = 2e-2  # bf16-operand kernel vs f32 autograd, relative to max|f32|
 STEP_REL_TOL = 2e-2  # loss and gradients, kernel step vs f32 step, relative to max|f32|
 BASKET_FLIP_TOL = 1e-3  # the basket's paths: largest difference, relative to sum|W_L|
+# K1's kernel ms by batch before the tensor-core redesign (PERF.md's kernel
+# tables, CUDA-core K1 on an H100 80GB HBM3 at 700 W), printed beside this run's
+K1_CUDA_CORE_MS = {1: 0.247, 100: 0.2482, 4096: 0.395}
 
 # K4 against its plain version, value by value, relative to each value: both
 # draw the same Philox stream and sum, correlate and round in the same order;
@@ -277,7 +281,8 @@ def time_k1(Ws, bs, device, B: int = 4096) -> dict:
     for b in K1_BATCHES:
         xb = torch.cat(requests(b, device, seed=b), dim=1).contiguous()
         by_batch[b] = time_ms(lambda: mlp_u_z_fwd(Ws, bs, xb), iters=50)
-    print("K1 kernel ms by batch: " + json.dumps(by_batch))
+    print("K1 kernel ms by batch: " + json.dumps(by_batch)
+          + "; before the redesign: " + json.dumps(K1_CUDA_CORE_MS))
     row = _k1_row(Ws, bs, B, ms, plain_ms, library_ms)
     # the training path's shape: 51 launches per iteration at B = M = 100
     x = torch.cat(requests(TRAIN_M, device, seed=8), dim=1).contiguous()
@@ -570,25 +575,26 @@ def time_k4(device) -> tuple[dict, dict]:
 # ---- the training path ------------------------------------------------------
 
 
-def flagship_batch(M: int, device, seed: int):
-    """(ts, dWs, X0) of BSB-100 at N = 50 in the loss's layout."""
+def flagship_batch(M: int, device, seed: int, prob=None):
+    """(ts, dWs, X0) of BSB-100, or of ``prob``, at N = 50 in the loss's layout."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.sim import time_major_batch
 
-    prob = BlackScholesBarenblatt(D=D)
+    prob = prob or BlackScholesBarenblatt(D=D)
     gen = torch.Generator(device=device).manual_seed(seed)
     ts, dWs = time_major_batch(gen, M, N_STEPS, D, prob.T)
     return ts, dWs, prob.x0.to(device).expand(M, D)
 
 
-def check_train_step(net, device) -> None:
-    """Loss and every gradient of one full-width rollout on the kernels
-    (fused_net_u="cuda") against the f32 autograd path ("torch")."""
+def check_train_step(net, device, prob=None, label: str = "train step") -> None:
+    """Loss and every gradient of one full-width rollout of BSB-100, or of
+    ``prob``, on the kernels (fused_net_u="cuda") against the f32 autograd
+    path ("torch")."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig, make_loss_fn
 
-    prob = BlackScholesBarenblatt(D=D)
-    batch = flagship_batch(TRAIN_M, device, seed=17)
+    prob = prob or BlackScholesBarenblatt(D=D)
+    batch = flagship_batch(TRAIN_M, device, seed=17, prob=prob)
     params = list(net.parameters())
     out = {}
     for backend in ("cuda", "torch"):
@@ -598,9 +604,9 @@ def check_train_step(net, device) -> None:
     names = ["loss"] + [f"d{n}" for n, _ in net.named_parameters()]
     for name, a, ref in zip(names, out["cuda"], out["torch"]):
         err, rel = _rel_err(a, ref)
-        print(f"train step {name}: max|d|={err:.3e} rel {rel:.3e} (tol {STEP_REL_TOL:g})")
-        _require(bool(torch.isfinite(a).all()), f"train step {name}: non-finite values")
-        _require(rel <= STEP_REL_TOL, f"train step {name}: kernels disagree with the f32 path")
+        print(f"{label} {name}: max|d|={err:.3e} rel {rel:.3e} (tol {STEP_REL_TOL:g})")
+        _require(bool(torch.isfinite(a).all()), f"{label} {name}: non-finite values")
+        _require(rel <= STEP_REL_TOL, f"{label} {name}: kernels disagree with the f32 path")
 
 
 def drive_training(device) -> dict:
@@ -829,8 +835,13 @@ def check_basket(run, device) -> None:
         _require(run["counts"][name] > 0, f"the basket path never launched {name}")
     losses = run["graph"][1]
     _require(bool(np.isfinite(losses).all()), "non-finite basket training loss")
-    _require(losses[0] >= 100 * losses[-1],
-             f"basket: mean logged loss fell only {losses[0] / losses[-1]:.2f}x, not 100x")
+    # 10x, as BSB's: after 400 iterations the fall lands anywhere in ~20-400x
+    # with the seed and with ulp-level changes of the kernels' sums, and the
+    # CUDA-core kernels before the tensor-core redesign fell less than 100x at
+    # 11 of 24 seeds (PERF.md, Findings); that the kernel path trains the
+    # basket's model is held by the step check instead
+    _require(losses[0] >= 10 * losses[-1],
+             f"basket: mean logged loss fell only {losses[0] / losses[-1]:.2f}x, not 10x")
     (p1, se1), (p2, se2) = run["oracle"], run["fused"]
     _require(abs(p1 - p2) < 4 * (se1**2 + se2**2) ** 0.5,
              f"basket oracles disagree: {p1} +- {se1} vs {p2} +- {se2}")
@@ -906,7 +917,7 @@ def main() -> int:
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
-    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.pde import BasketCallOption, BlackScholesBarenblatt
 
     net = make_net(device)
     Ws, bs = weights(net)
@@ -917,6 +928,7 @@ def main() -> int:
     k3 = check_k3(Ws, bs, x0, device)
     k4 = check_k4(device)
     check_train_step(net, device)
+    check_train_step(net, device, BasketCallOption(D=D), "basket train step")
 
     train = drive_training(device)
     check_training(train)

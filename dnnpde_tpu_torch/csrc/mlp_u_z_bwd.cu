@@ -24,7 +24,7 @@
 // x_bar): bound by bytes, 0.57 us. At B = 2048 it is 5.4 GFLOP: bound by
 // operations, 5.4 us at the bf16 tensor-core peak.
 //
-// Design of this first version. The TPU kernel accumulates W_bar and b_bar by
+// Design. The TPU kernel accumulates W_bar and b_bar by
 // read-modify-write into one output block across the batch grid, which is
 // race-free only because a TPU grid runs in order. Here blocks run
 // concurrently, so each block owns a partial sum of all gradients in a
@@ -32,14 +32,21 @@
 // partials in block order. There are no float atomics, so the result does not
 // change from run to run. The grid is capped (the wrapper passes at most one
 // block per SM) and each block walks several 16-row tiles, which bounds the
-// scratch at grid x 0.9 MB. One block of 256 threads holds a tile's p_k, the
+// scratch at grid x 0.9 MB. One block of 512 threads holds a tile's p_k, the
 // sweep's r_k (overwritten by pz_k in the Z-path), bf(x) and two working
 // buffers in dynamic shared memory: 16 x (104 + 2 x 1024 + 2 x 256) floats
-// = 170 KB at full width. sin and cos are recomputed from p_k where needed.
+// = 170 KB at full width, and beside them the recompute's bf16 activations
+// and weight staging, 57 KB. sin and cos are recomputed from p_k where needed.
 // The ragged batch is masked by loading zero x, u_bar and z_bar rows, whose
 // contributions to every gradient are exactly zero, and by not storing their
-// x_bar. The dots run on the CUDA cores in f32 FMAs on bf16-rounded operands,
-// as K1's do; tensor cores are what would close the gap to the bound.
+// x_bar.
+//
+// The recompute of p_k and r_k runs on K1's own tensor-core layer
+// (common.cuh::row16_layer), so it sums in K1's order and its values are
+// K1's bit for bit: the backward is the exact derivative of the forward whose
+// u and Z the loss used. The backward's own dots run on the CUDA cores in f32
+// FMAs on bf16-rounded operands; tensor cores are what would close the gap
+// to the bound.
 #include "common.cuh"
 
 namespace {
@@ -55,6 +62,7 @@ struct BwdLayout {
   int boff[DNNPDE_MAX_LAYERS];
   int hidden;  // sum of the slot widths
   int ldm;     // widest round4(n_k)
+  int lda;     // row stride of the recompute's bf16 activations, as K1's
   int total;   // number of gradient values
 };
 
@@ -95,11 +103,12 @@ __device__ __forceinline__ void tile_outer(const float* A, int lda, int n_i, con
 }
 
 template <int TILE>
-__global__ void __launch_bounds__(DNNPDE_THREADS)
+__global__ void __launch_bounds__(kTcThreads)
 mlp_u_z_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ubar,
                    const float* __restrict__ zbar, float* __restrict__ xbar,
                    float* __restrict__ partial, const MlpWeights w, const BwdLayout lay,
                    int B, int n_tiles) {
+  static_assert(TILE == 16, "the recompute runs K1's 16-row layer");
   extern __shared__ __align__(16) float smem[];
   const int L = w.L;
   const int n0 = w.width[0], ld0 = dnnpde_round4(n0);
@@ -110,6 +119,9 @@ mlp_u_z_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ubar,
   float* buf0 = R + TILE * lay.hidden;
   float* buf1 = buf0 + TILE * lay.ldm;
   float* ub = buf1 + TILE * lay.ldm;      // u_bar of the tile's rows
+  bf16* stage = reinterpret_cast<bf16*>(ub + TILE);  // the recompute's weight staging
+  bf16* act0 = stage + kRow16StageElems;  // the recompute's bf16 A operands, row stride lda
+  bf16* act1 = act0 + TILE * lay.lda;
   float* part = partial + (size_t)blockIdx.x * lay.total;
   const float* wtop = w.W[L - 1];         // W_{L-1}[:, 0] = r_{L-1}
 
@@ -122,33 +134,41 @@ mlp_u_z_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ubar,
       xa[i] = (r < B && c < n0) ? bf16_round(x[(size_t)r * n0 + c]) : 0.f;
     }
     for (int b = threadIdx.x; b < TILE; b += blockDim.x) ub[b] = row0 + b < B ? ubar[row0 + b] : 0.f;
+    const int n0p = dnnpde_round16(n0);
+    for (int i = threadIdx.x; i < TILE * n0p; i += blockDim.x) {
+      const int b = i / n0p, c = i - b * n0p, r = row0 + b;
+      act0[b * lay.lda + c] = __float2bfloat16_rn(r < B && c < n0 ? x[(size_t)r * n0 + c] : 0.f);
+    }
     __syncthreads();
 
-    // ---- recompute the forward pass: p_k into slot k
-    const float* a = xa;
-    float* nxt = buf0;
+    // ---- recompute the forward pass as K1 runs it: p_k into slot k
+    bf16* a = act0;
+    bf16* nxt = act1;
     for (int k = 0; k < L - 1; ++k) {
       const int K = w.width[k], n = w.width[k + 1], ldn = dnnpde_round4(n);
       float* Pk = P + TILE * lay.slot[k];
       const float* bias = w.b[k];
-      tile_dot<TILE>(a, dnnpde_round4(K), K, w.W[k], n, 1, n, [&](int b, int o, float acc) {
-        const float p = acc + __ldg(bias + o);
-        Pk[b * ldn + o] = p;
-        nxt[b * ldn + o] = bf16_round(sinf(p));
+      row16_layer<false>(a, lay.lda, K, w.W[k], n, n, stage, [&](int b, int o, float acc) {
+        float s = 0.f;
+        if (o < n) {
+          const float p = acc + __ldg(bias + o);
+          Pk[b * ldn + o] = p;
+          s = sinf(p);
+        }
+        nxt[b * lay.lda + o] = __float2bfloat16_rn(s);
       });
-      __syncthreads();
-      a = nxt;
-      nxt = nxt == buf0 ? buf1 : buf0;
+      bf16* t = a; a = nxt; nxt = t;
     }
 
-    // ---- Z-sweep: r_k for k = L-2 .. 1 into slot k-1
-    float* q = buf0;
-    float* qn = buf1;
+    // ---- Z-sweep as K1 runs it: r_k for k = L-2 .. 1 into slot k-1
+    bf16* q = act0;
+    bf16* qn = act1;
     {
       const float* Pt = P + TILE * lay.slot[L - 2];
-      for (int i = threadIdx.x; i < TILE * ldh; i += blockDim.x) {
-        const int b = i / ldh, j = i - b * ldh;
-        q[i] = j < H ? bf16_round(__ldg(wtop + j) * cosf(Pt[b * ldh + j])) : 0.f;
+      const int hp = dnnpde_round16(H);
+      for (int i = threadIdx.x; i < TILE * hp; i += blockDim.x) {
+        const int b = i / hp, j = i - b * hp;
+        q[b * lay.lda + j] = __float2bfloat16_rn(j < H ? __ldg(wtop + j) * cosf(Pt[b * ldh + j]) : 0.f);
       }
     }
     __syncthreads();
@@ -156,12 +176,15 @@ mlp_u_z_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ubar,
       const int K = w.width[k + 1], n = w.width[k], ldn = dnnpde_round4(n);
       float* Rk = R + TILE * lay.slot[k - 1];
       const float* Pp = P + TILE * lay.slot[k - 1];
-      tile_dot<TILE>(q, dnnpde_round4(K), K, w.W[k], 1, K, n, [&](int b, int o, float acc) {
-        Rk[b * ldn + o] = acc;
-        qn[b * ldn + o] = bf16_round(acc * cosf(Pp[b * ldn + o]));
+      row16_layer<true>(q, lay.lda, K, w.W[k], K, n, stage, [&](int b, int o, float acc) {
+        float v = 0.f;
+        if (o < n) {
+          Rk[b * ldn + o] = acc;
+          v = acc * cosf(Pp[b * ldn + o]);
+        }
+        qn[b * lay.lda + o] = __float2bfloat16_rn(v);
       });
-      __syncthreads();
-      float* t = q; q = qn; qn = t;
+      bf16* t = q; q = qn; qn = t;
     }
 
     // ---- Z-path adjoint, ascending; c starts as z_bar
@@ -308,15 +331,19 @@ extern "C" int mlp_u_z_bwd(const float* x, const float* u_bar, const float* z_ba
     lay.slot[k] = lay.hidden;
     lay.hidden += dnnpde_round4(w.width[k + 1]);
   }
+  int width = 0;
+  for (int k = 0; k < L; ++k) width = width > w.width[k] ? width : w.width[k];
+  lay.lda = dnnpde_round16(width) + 8;
   const size_t smem = sizeof(float) * ((size_t)kTile * (dnnpde_round4(w.width[0]) +
                                                        2 * (size_t)lay.hidden + 2 * lay.ldm) +
-                                       kTile);
+                                       kTile) +
+                      sizeof(bf16) * ((size_t)kRow16StageElems + 2 * (size_t)kTile * lay.lda);
   if (smem > DNNPDE_MAX_SMEM) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(mlp_u_z_bwd_kernel<kTile>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp_u_z_bwd_kernel<kTile><<<grid, DNNPDE_THREADS, smem, s>>>(x, u_bar, z_bar, x_bar, partial,
+  mlp_u_z_bwd_kernel<kTile><<<grid, kTcThreads, smem, s>>>(x, u_bar, z_bar, x_bar, partial,
                                                                w, lay, B, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -11,94 +11,106 @@
 // Bound on an H100 SXM: at B = 4096 and [101, 256 x 4, 1] the dots are
 // 2 * B * (101*256 + 3*256^2 + 256) * 2 ~ 3.7 GFLOP against ~4 MB of x, Z and
 // weights, so the work is bound by operations (3.7 us at the bf16 tensor-core
-// peak, 1.3 us for the bytes).
+// peak, 1.3 us for the bytes). At the training batch, B = 100, the bound is
+// the 0.9 MB of weights (0.3 us). What bounds the kernel in practice is
+// different: each 16-row tile works on one SM through 2(L-1) dependent layer
+// passes, each a chain of 32-row weight chunks (an L2 round trip of f32
+// weights, the bf16 store, the MMAs) and then the sines, and streams all
+// 1.8 MB of weights through that SM (forward and sweep). At small B that
+// chain is the time, about 0.06 ms on an H100 from B = 1 to 100; at large B
+// it is the 1.8 MB per tile times the tiles per SM.
 //
-// Design of this first version: one block of 256 threads per tile of 16 rows.
-// The tile's activations and every hidden layer's cos(p_k), which the sweep
-// needs, stay in dynamic shared memory (96 KB at full width), so nothing but
-// x, u and Z touches device memory. The weights (0.9 MB in f32) are read from
-// L2 by every block and rounded to bf16 on the fly. The dots run on the CUDA
-// cores in f32 FMAs (exact bf16 products), one output column per thread with
-// the 16 row sums in registers. Tensor cores (mma.sync / wgmma) and TMA are
-// what would close the gap to the bound.
+// Design: one block of 16 warps per 16-row tile, all in shared memory: the
+// tile's bf16 activations (ping-pong), every hidden layer's cos(p_k) in f32
+// for the sweep (64 KB at full width) and the weight-staging buffers, 121 KB
+// in all. Each layer is one row16_layer (common.cuh's tc_layer, which K2's
+// recompute shares, so K2 differentiates this forward exactly): the weights arrive in
+// chunks of 32 k rows, f32 from L2 rounded to bf16 in shared memory, with
+// the next chunk's loads in flight while the warps run mma.sync on the
+// current one; the 16 warps split the layer's output columns (16 each at
+// width 256), so all of them issue tensor-core work on the one tile, and 16
+// warps hide the latency of the loads, the MMAs and the sines between them.
+// The sweep stages the same weight rectangles and reads them without the
+// transpose. One design serves every B; nothing but x, u and Z touches
+// device memory.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
+constexpr int kTile = 16;  // rows per block
+constexpr int kStageElems = kRow16StageElems;
 
-template <int TILE>
-__global__ void __launch_bounds__(DNNPDE_THREADS)
+__global__ void __launch_bounds__(kTcThreads)
 mlp_u_z_fwd_kernel(const float* __restrict__ x, float* __restrict__ u,
-                   float* __restrict__ z, const MlpWeights w, int B, int ld) {
-  extern __shared__ __align__(16) float smem[];
+                   float* __restrict__ z, const MlpWeights w, int B, int lda) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* stage = reinterpret_cast<bf16*>(smem);
+  bf16* buf0 = stage + kStageElems;
+  bf16* buf1 = buf0 + kTile * lda;
+  float* cosp = reinterpret_cast<float*>(buf1 + kTile * lda);  // cos p_k, k = 0 .. L-2
   const int L = w.L;
   const int n0 = w.width[0];
-  float* buf0 = smem;
-  float* buf1 = buf0 + TILE * ld;
-  float* cosp = buf1 + TILE * ld;  // cos p_k, k = 0 .. L-2, back to back
-  const int row0 = blockIdx.x * TILE;
-  const int lda0 = dnnpde_round4(n0);
+  const int row0 = blockIdx.x * kTile;
 
-  for (int i = threadIdx.x; i < TILE * lda0; i += blockDim.x) {
-    const int b = i / lda0, c = i - b * lda0;
+  const int n0p = dnnpde_round16(n0);
+  for (int i = threadIdx.x; i < kTile * n0p; i += blockDim.x) {
+    const int b = i / n0p, c = i - b * n0p;
     const int r = row0 + b;
-    buf0[i] = (r < B && c < n0) ? bf16_round(x[(size_t)r * n0 + c]) : 0.f;
+    buf0[b * lda + c] = __float2bfloat16_rn(r < B && c < n0 ? x[(size_t)r * n0 + c] : 0.f);
   }
   __syncthreads();
 
   // forward through the hidden layers
-  float* a = buf0;
-  float* nxt = buf1;
+  bf16* a = buf0;
+  bf16* nxt = buf1;
   float* cp = cosp;
   for (int k = 0; k < L - 1; ++k) {
     const int K = w.width[k], n = w.width[k + 1];
-    const int lda = dnnpde_round4(K), ldn = dnnpde_round4(n);
     const float* bias = w.b[k];
-    tile_dot<TILE>(a, lda, K, w.W[k], n, 1, n, [&](int b, int o, float acc) {
-      const float p = acc + __ldg(bias + o);
-      cp[b * n + o] = cosf(p);
-      nxt[b * ldn + o] = bf16_round(sinf(p));
+    row16_layer<false>(a, lda, K, w.W[k], n, n, stage, [&](int b, int o, float acc) {
+      float s = 0.f;
+      if (o < n) {
+        const float p = acc + __ldg(bias + o);
+        cp[b * n + o] = cosf(p);
+        s = sinf(p);
+      }
+      nxt[b * lda + o] = __float2bfloat16_rn(s);
     });
-    __syncthreads();
-    float* tmp = a; a = nxt; nxt = tmp;
-    cp += TILE * n;
+    bf16* tmp = a; a = nxt; nxt = tmp;
+    cp += kTile * n;
   }
 
   // u = a_{L-2} W_{L-1} + b_{L-1}
   const int H = w.width[L - 1];
   const float b_out = __ldg(w.b[L - 1]);
-  tile_head<TILE>(a, dnnpde_round4(H), H, w.W[L - 1], [&](int b, float s) {
+  tile_head<kTile>(a, lda, H, w.W[L - 1], [&](int b, float s) {
     if (row0 + b < B) u[row0 + b] = s + b_out;
   });
-  __syncthreads();
 
   // Z-sweep; q = bf16(r * cos p_k) is the A operand of q W_k^T
-  cp -= TILE * H;  // cos p_{L-2}
-  float* q = a == buf0 ? buf1 : buf0;
-  const int ldh = dnnpde_round4(H);
-  for (int i = threadIdx.x; i < TILE * ldh; i += blockDim.x) {
-    const int b = i / ldh, j = i - b * ldh;
-    q[i] = j < H ? bf16_round(__ldg(w.W[L - 1] + j) * cp[b * H + j]) : 0.f;
+  cp -= kTile * H;  // cos p_{L-2}
+  bf16* q = nxt;
+  const int hp = dnnpde_round16(H);
+  for (int i = threadIdx.x; i < kTile * hp; i += blockDim.x) {
+    const int b = i / hp, j = i - b * hp;
+    q[b * lda + j] = __float2bfloat16_rn(j < H ? __ldg(w.W[L - 1] + j) * cp[b * H + j] : 0.f);
   }
-  __syncthreads();
-  float* qn = q == buf0 ? buf1 : buf0;
+  __syncthreads();  // also ends the head's reads of a, which becomes qn
+  bf16* qn = a;
   for (int k = L - 2; k >= 0; --k) {
     const int K = w.width[k + 1], n = w.width[k];
-    const int lda = dnnpde_round4(K), ldn = dnnpde_round4(n);
     if (k > 0) {
-      float* cprev = cp - TILE * n;  // cos p_{k-1}
-      tile_dot<TILE>(q, lda, K, w.W[k], 1, K, n, [&](int b, int o, float acc) {
-        qn[b * ldn + o] = bf16_round(acc * cprev[b * n + o]);
+      const float* cprev = cp - kTile * n;  // cos p_{k-1}
+      row16_layer<true>(q, lda, K, w.W[k], K, n, stage, [&](int b, int o, float acc) {
+        qn[b * lda + o] = __float2bfloat16_rn(o < n ? acc * cprev[b * n + o] : 0.f);
       });
-      cp = cprev;
+      cp -= kTile * n;
     } else {
-      tile_dot<TILE>(q, lda, K, w.W[0], 1, K, n, [&](int b, int o, float acc) {
-        if (row0 + b < B) z[(size_t)(row0 + b) * n0 + o] = acc;
+      row16_layer<true>(q, lda, K, w.W[0], K, n, stage, [&](int b, int o, float acc) {
+        if (o < n && row0 + b < B) z[(size_t)(row0 + b) * n0 + o] = acc;
       });
     }
-    __syncthreads();
-    float* tmp = q; q = qn; qn = tmp;
+    bf16* tmp = q; q = qn; qn = tmp;
   }
 }
 
@@ -113,16 +125,18 @@ extern "C" int mlp_u_z_fwd(const float* x, float* u, float* z, const void* const
   cudaError_t err = dnnpde_fill_weights(&w, Ws, bs, widths, L);
   if (err != cudaSuccess) return err;
   if (B <= 0) return cudaErrorInvalidValue;
-  int ld = 0, hidden = 0;
-  for (int k = 0; k < L; ++k) ld = ld > dnnpde_round4(w.width[k]) ? ld : dnnpde_round4(w.width[k]);
+  int width = 0, hidden = 0;
+  for (int k = 0; k < L; ++k) width = width > w.width[k] ? width : w.width[k];
   for (int k = 1; k < L; ++k) hidden += w.width[k];
-  const size_t smem = sizeof(float) * (size_t)kTile * (2 * (size_t)ld + hidden);
+  const int lda = dnnpde_round16(width) + 8;  // rows 16 bytes apart modulo 128
+  const size_t smem = sizeof(bf16) * ((size_t)kStageElems + 2 * (size_t)kTile * lda) +
+                      sizeof(float) * (size_t)kTile * hidden;
   if (smem > DNNPDE_MAX_SMEM) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(mlp_u_z_fwd_kernel<kTile>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(mlp_u_z_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kTile - 1) / kTile);
-  mlp_u_z_fwd_kernel<kTile><<<grid, DNNPDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, u, z, w, B, ld);
+  mlp_u_z_fwd_kernel<<<grid, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, u, z, w, B, lda);
   return cudaGetLastError();
 }

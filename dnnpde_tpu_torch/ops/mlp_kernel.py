@@ -3,12 +3,13 @@ backward on hand-written CUDA kernels.
 
 Counterparts of ``dnnpde_tpu/ops/mlp_kernel.py::mlp_u_z_fwd_pallas`` and
 ``mlp_u_z_bwd_pallas``. K1 (``csrc/mlp_u_z_fwd.cu``) runs the forward pass
-and the Z-sweep for a tile of rows with the tile's activations in shared
-memory; only x, u and Z touch device memory. K2 (``csrc/mlp_u_z_bwd.cu``)
-recomputes them and runs the Z-path adjoint and the u-path backward, with
-per-block partial weight gradients summed in a fixed order by a second
-kernel. Matmul operands are rounded to bf16 and accumulated in f32, as on
-the TPU.
+and the Z-sweep for a tile of rows on tensor cores (``mma.sync``), with the
+tile's activations in shared memory; only x, u and Z touch device memory.
+K2 (``csrc/mlp_u_z_bwd.cu``) recomputes them with K1's own tensor-core
+layer, bit for bit, and runs the Z-path adjoint and the u-path backward on
+CUDA cores, with per-block partial weight gradients summed in a fixed order
+by a second kernel. Matmul operands are
+rounded to bf16 and accumulated in f32, as on the TPU.
 
 ``mlp_u_z_fwd`` and ``mlp_u_z_bwd`` launch their kernels for CUDA tensors
 and raise on anything they do not take. For CPU tensors they compute the

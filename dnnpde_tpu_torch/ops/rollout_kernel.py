@@ -2,10 +2,13 @@
 per step in one CUDA launch.
 
 Counterpart of ``dnnpde_tpu/ops/rollout_kernel.py``. The kernel
-(``csrc/rollout.cu``) gives each block a tile of paths and loops over the
-N+1 times inside the block, with the tile's state X and its activations in
-shared memory for the whole rollout. Its device-memory traffic is x0 in, Y
-out and, in the explicit variant, the dW tensor.
+(``csrc/rollout.cu``) gives each block a tile of 128 paths and loops over
+the N+1 times inside the block, with the tile's state X and its activations
+in shared memory for the whole rollout and the net's dots on tensor cores.
+Its device-memory traffic is x0 in, Y out and, in the explicit variant, the
+dW tensor. A net too wide for a 128-path tile in shared memory (hidden
+widths above 272 at D = 100) takes 16-path tiles, up to 2992 wide at
+D = 100; a wider net raises.
 
 Random increments: the TPU kernel seeds its hardware generator per tile. This
 port draws them from a counter-based Philox4x32-10 keyed by ``seed`` with

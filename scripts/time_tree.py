@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Training rates and K1's time by batch of one checkout of this repo, on one
+NVIDIA GPU, for comparing two commits within one call:
+
+    python3 scripts/time_tree.py TREE
+    python3 scripts/time_tree.py TREE --basket-seeds 1-8
+
+TREE is the root of a checkout (for example a ``git archive`` of the parent
+commit unpacked under ``build/``). The script imports that tree's
+``chip_smoke.py`` and ``dnnpde_tpu_torch``, builds the tree's kernels into
+the tree's own ``build/``, and runs its ``time_training`` (iterations/s at
+M = 100, 512, 2048 on the kernel path and on the f32 autograd path) and its
+``time_k1`` (K1 at B = 4096 and 100, and by batch) at full width, FC-Sine
+[101, 256 x 4, 1] with weights from seed 0. It prints the card's name and
+power limit and, last, one JSON line with the rates. Host-clock rates move
+between calls, so compare trees within one call, in the order parent,
+change, change, parent, one process per tree.
+
+With ``--basket-seeds A-B`` it instead trains the basket call as
+``chip_smoke.py``'s basket path does (BasketCallOption(D=100) on K1 + K2,
+the tree's own layers, batch, steps, iterations and logging) once for each
+seed A..B, and prints each run's mean logged losses, loss fall and last Y0:
+the spread of the 400-iteration loss fall over seeds, for one tree's kernels.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def basket_falls(chip_smoke, device, seeds) -> dict:
+    from dnnpde_tpu_torch.pde import BasketCallOption
+    from dnnpde_tpu_torch.solver import SolverConfig
+    from dnnpde_tpu_torch.train import Trainer
+
+    prob = BasketCallOption(D=chip_smoke.D)
+    runs = {}
+    for seed in seeds:
+        trainer = Trainer(prob, M=chip_smoke.TRAIN_M, N=chip_smoke.N_STEPS,
+                          layers=chip_smoke.LAYERS,
+                          solver_config=SolverConfig(fused_net_u="cuda", remat=False),
+                          seed=seed, device=device)
+        res = trainer.train(chip_smoke.TRAIN_ITERS, 1e-3, "Adam",
+                            log_every=chip_smoke.TRAIN_LOG_EVERY, verbose=False)
+        losses = res.graph[1]
+        runs[seed] = {"losses": losses.tolist(), "fall": float(losses[0] / losses[-1]),
+                      "y0": float(res.y0_history[-1])}
+        print(f"seed {seed}: {json.dumps(runs[seed])}", flush=True)
+    return runs
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    seeds = None
+    if len(args) == 3 and args[1] == "--basket-seeds":
+        first, last = (int(s) for s in args[2].split("-"))
+        seeds = range(first, last + 1)
+        args = args[:1]
+    if len(args) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    tree = Path(args[0]).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_tree: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from dnnpde_tpu_torch.ops import _build
+
+    if not Path(chip_smoke.__file__).resolve().is_relative_to(tree):
+        print(f"time_tree: imported {chip_smoke.__file__}, not {tree}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    if seeds is not None:
+        runs = basket_falls(chip_smoke, device, seeds)
+        print(json.dumps({"tree": str(tree), "basket": runs}))
+        return 0
+    Ws, bs = chip_smoke.weights(chip_smoke.make_net(device))
+    k1 = chip_smoke.time_k1(Ws, bs, device)
+    rates = chip_smoke.time_training(device)
+    print(json.dumps({"tree": str(tree), "training": rates, "k1_B4096_ms": k1["ms"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -66,6 +66,67 @@ def test_k1_matches_plain_version(cuda_device, B):
     _assert_kernel_close(z, z_ref)
 
 
+# Ragged widths for K1's tensor-core layers: inputs and hidden widths that are
+# not multiples of 16 (zero-padded k rows and n columns in shared memory), a
+# 2-wide input as CallOption1D has, and a 300-wide layer that takes two
+# 256-column passes in both the forward and the sweep.
+RAGGED_NETS = {"7-40-24": [7, 40, 24, 1], "2-16-16": [2, 16, 16, 1], "9-300-40": [9, 300, 40, 1]}
+
+
+@pytest.mark.parametrize("B", [1, 17, 300, 4096])
+@pytest.mark.parametrize("net", list(RAGGED_NETS))
+def test_k1_matches_plain_version_at_ragged_widths(cuda_device, net, B):
+    layers = RAGGED_NETS[net]
+    rng = np.random.default_rng(B + len(net))
+    Ws = _on(cuda_device, [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+                           for a, b in zip(layers[:-1], layers[1:])])
+    bs = _on(cuda_device, [(0.1 * rng.normal(size=(b,))).astype(np.float32) for b in layers[1:]])
+    (x,) = _on(cuda_device, [rng.normal(size=(B, layers[0])).astype(np.float32)])
+    u, z = mlp_u_z_fwd(Ws, bs, x)
+    torch.cuda.synchronize()
+    u_ref, z_ref = mlp_u_z_fwd_reference(Ws, bs, x)
+    _assert_kernel_close(u, u_ref)
+    _assert_kernel_close(z, z_ref)
+
+
+def test_k1_dots_are_as_close_to_exact_as_sequential_f32(cuda_device):
+    """K1's tensor-core dots against the exact sums of the same bf16 products.
+    With x = 0 and zero biases, cos p = 1 and K1's Z is the raw sweep dot
+    Z_i = sum_j bf16(W1[j]) bf16(W0[i, j]), 256 terms whose magnitudes spread
+    over 2^-10 .. 1 with random signs. Its mean error, relative to
+    sum_j |term|, must not exceed that of a sequential f32 sum of the same
+    (exact) products."""
+    rng = np.random.default_rng(3)
+    n0, H = 101, 256
+    errs = {"k1": [], "sequential": []}
+    for _ in range(3):
+        W0 = (rng.normal(size=(n0, H)) * np.exp2(rng.uniform(-10, 0, (n0, H)))).astype(np.float32)
+        W1 = (rng.normal(size=(H, 1)) * np.exp2(rng.uniform(-10, 0, (H, 1)))).astype(np.float32)
+        Ws = _on(cuda_device, [W0, W1])
+        bs = [torch.zeros(H, device=cuda_device), torch.zeros(1, device=cuda_device)]
+        _, z = mlp_u_z_fwd(Ws, bs, torch.zeros(16, n0, device=cuda_device))
+        terms = Ws[0].bfloat16().double() * Ws[1][:, 0].bfloat16().double()
+        exact, mag = terms.sum(1), terms.abs().sum(1)
+        seq = torch.zeros(n0, dtype=torch.float32, device=cuda_device)
+        for j in range(H):
+            seq = seq + terms[:, j].float()  # each product is exact in f32
+        errs["k1"].append((z[0].double() - exact).abs() / mag)
+        errs["sequential"].append((seq.double() - exact).abs() / mag)
+    k1, sequential = (float(torch.cat(errs[k]).mean()) for k in ("k1", "sequential"))
+    assert k1 <= sequential, (k1, sequential)
+
+
+def test_k1_rows_do_not_depend_on_their_tile(cuda_device):
+    """A row's (u, Z) is the same bit for bit whatever the other rows of its
+    16-row tile hold."""
+    Ws, bs, x, _, _ = _full_width(cuda_device, 16, seed=4)
+    u1, z1 = mlp_u_z_fwd(Ws, bs, x)
+    x2 = x.clone()
+    x2[1:] *= 100.0
+    u2, z2 = mlp_u_z_fwd(Ws, bs, x2)
+    assert torch.equal(u1[0], u2[0]) and torch.equal(z1[0], z2[0])
+
+
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     Ws = [torch.zeros(5, 8, device=cuda_device), torch.zeros(8, 1, device=cuda_device)]
     bs = [torch.zeros(8, device=cuda_device), torch.zeros(1, device=cuda_device)]
@@ -92,6 +153,43 @@ def test_k3_matches_plain_version(cuda_device, variant):
     torch.cuda.synchronize()
     assert rollout_paths.launches == before + 1
     _assert_kernel_close(y, rollout_paths_reference(Ws, bs, x0, **kw))
+
+
+def _rollout_net(device, rng, D, H):
+    Ws = _on(device, [(0.5 * rng.normal(size=(D + 1, H)) / np.sqrt(D + 1)).astype(np.float32),
+                      (rng.normal(size=(H, H)) / np.sqrt(H)).astype(np.float32),
+                      (rng.normal(size=(H, 1)) / np.sqrt(H)).astype(np.float32)])
+    bs = _on(device, [(0.1 * rng.normal(size=(n,))).astype(np.float32) for n in (H, H, 1)])
+    (x0,) = _on(device, [rng.uniform(0.5, 1.5, size=D).astype(np.float32)])
+    return Ws, bs, x0
+
+
+# K3 takes 128 paths a block, or 16 when a net is too wide for a 128-path
+# tile in shared memory; M is no multiple of the tile, so the last block is
+# ragged. 128-path tiles: D = 1 with H = 40 pads k and n; H = 300 takes two
+# column passes. 16-path tiles: H = 400 at D = 1 and H = 512 at D = 100.
+@pytest.mark.parametrize("variant", ["dWs", "seed"])
+@pytest.mark.parametrize("D, H, M", [(1, 40, 1000), (1, 300, 200), (100, 256, 300),
+                                     (1, 400, 37), (100, 512, 50)])
+def test_k3_matches_plain_version_at_ragged_tiles(cuda_device, D, H, M, variant):
+    rng = np.random.default_rng(D + H)
+    Ws, bs, x0 = _rollout_net(cuda_device, rng, D, H)
+    N = 5
+    kw = dict(N=N, dt=1.0 / N, mu_c=0.05, sig_c=0.2)
+    if variant == "dWs":
+        (kw["dWs"],) = _on(cuda_device, [(0.4 * rng.normal(size=(M, N, D))).astype(np.float32)])
+    else:
+        kw.update(seed=7, M=M)
+    y = rollout_paths(Ws, bs, x0, **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_close(y, rollout_paths_reference(Ws, bs, x0, **kw))
+
+
+def test_k3_rejects_a_net_too_wide_for_shared_memory(cuda_device):
+    rng = np.random.default_rng(0)
+    Ws, bs, x0 = _rollout_net(cuda_device, rng, 100, 3000)
+    with pytest.raises(RuntimeError, match="rollout_paths"):
+        rollout_paths(Ws, bs, x0, N=2, dt=0.5, mu_c=0.0, sig_c=0.2, seed=1, M=256)
 
 
 FULL = [101, 256, 256, 256, 256, 1]
@@ -121,6 +219,32 @@ def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
     # per-block partials summed in a fixed order: no run-to-run change
     for a, b in zip([*W_bars, *b_bars, x_bar], [*again[0], *again[1], again[2]]):
         assert torch.equal(a, b)
+
+
+def test_k2_recomputes_k1s_forward_exactly(cuda_device):
+    """K2 differentiates the forward that K1 ran, not a neighbour of it. With
+    u_bar the one-hot of row r and z_bar = 0, K2's gradient of the head is the
+    last hidden activation it recomputed for row r, bf16(sin p), exactly; K1's
+    u[r] is the head over the activation K1 computed. The two agree to the f32
+    rounding of K1's 256-term head sum (under 1e-6 of its terms' magnitude)
+    only if every activation is equal: where the two sum a layer in other
+    orders, bf16 roundings flip, and each flip moves u[r] by about 2^-8 of
+    one term, some 1e-5 of the sum."""
+    B = 64
+    Ws, bs, x, _, _ = _full_width(cuda_device, B, seed=11)
+    u, _ = mlp_u_z_fwd(Ws, bs, x)
+    w_head = Ws[-1][:, 0].to(torch.bfloat16).double()
+    z_bar = torch.zeros_like(x)
+    for r in range(B):
+        u_bar = torch.zeros(B, 1, device=cuda_device)
+        u_bar[r] = 1.0
+        W_bars, _, _ = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+        a = W_bars[-1][:, 0]
+        assert torch.equal(a, a.to(torch.bfloat16).float())
+        terms = a.double() * w_head
+        u_r = float(terms.sum()) + float(bs[-1][0])
+        scale = float(terms.abs().sum()) + abs(float(bs[-1][0]))
+        assert abs(float(u[r, 0]) - u_r) <= 1e-6 * scale, f"row {r}"
 
 
 def test_fused_function_gradients_match_plain_function(cuda_device):
