@@ -46,10 +46,13 @@ built for CUDA. It
    before it runs and read just after, and the kernels line reports those
    counts path by path;
 8. times training (iterations/s at M = 100, 512, 2048 on both paths, and
-   the basket run), the serving requests and both oracles (host clock to
-   result), then each kernel, its plain version and one PyTorch call that
-   computes the same function (the library yardstick, which the port never
-   calls), and prints one JSON line of kernels and, last, the device line.
+   the basket run), traces BSB-100 kernel-path iterations at M = 100 with
+   ``torch.profiler`` (wall ms per iteration, device-busy ms, and K1's and
+   K2's share of the device time), times the serving requests and both
+   oracles (host clock to result), then each kernel, its plain version and
+   one PyTorch call that computes the same function (the library
+   yardstick, which the port never calls), and prints one JSON line of
+   kernels and, last, the device line.
 
 Any failure ends the script with a non-zero exit code and no result line.
 """
@@ -57,6 +60,7 @@ Any failure ends the script with a non-zero exit code and no result line.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -675,6 +679,79 @@ def time_training(device) -> dict:
     return out
 
 
+TRACE_ITERS = 5  # kernel-path iterations in the profiled window
+
+
+def _union_ms(spans) -> float:
+    """Total length in ms of the union of (start, end) intervals in us."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def trace_iteration(device, iters: int = TRACE_ITERS) -> dict:
+    """Where the time of a BSB-100 kernel-path training iteration at M = 100
+    goes: host-clock ms per iteration without and with ``torch.profiler``,
+    and from the profiler's device trace the busy ms per iteration (the
+    union of kernel, copy and set intervals), the kernels' ms by K1, K2 and
+    the rest, and their launches. K2 counts both of its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.solver import SolverConfig
+    from dnnpde_tpu_torch.train import Trainer
+
+    tr = Trainer(BlackScholesBarenblatt(D=D), M=TRAIN_M, N=N_STEPS, layers=LAYERS, seed=3,
+                 solver_config=SolverConfig(fused_net_u="cuda", remat=False), device=device)
+
+    def window() -> float:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        tr.train(iters, 1e-3, log_every=iters, verbose=False)
+        torch.cuda.synchronize(device)
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    window()  # warm-up
+    wall = window()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = window()
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    device_events = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    _require(len(device_events) > 0, "the profiler recorded no device activity")
+
+    # sum_partials_kernel: K2's second kernel in older trees, which
+    # scripts/time_tree.py traces with this function too
+    def kind(name: str) -> str:
+        if "mlp_u_z_fwd" in name:
+            return "k1"
+        if "mlp_u_z_bwd" in name or "sum_partials" in name:
+            return "k2"
+        return "other"
+
+    ms = {"k1": 0.0, "k2": 0.0, "other": 0.0}
+    launches = {"k1": 0, "k2": 0, "other": 0}
+    by_kernel = {}  # K1's and K2's kernels by name, ms per iteration
+    for e in device_events:
+        if e["cat"] == "kernel":
+            k = kind(e["name"])
+            ms[k] += e["dur"] / 1e3 / iters
+            launches[k] += 1
+            if k != "other":
+                name = re.search(r"mlp_u_z_\w+|sum_partials\w*", e["name"]).group(0)
+                by_kernel[name] = by_kernel.get(name, 0.0) + e["dur"] / 1e3 / iters
+    busy = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in device_events) / iters
+    return {"M": TRAIN_M, "iterations": iters, "wall_ms": wall, "traced_wall_ms": traced,
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / traced,
+            "kernel_ms": ms, "k1_share": ms["k1"] / busy, "k2_share": ms["k2"] / busy,
+            "kernel_launches": launches, "k1_k2_kernels_ms": by_kernel}
+
+
 # ---- the serving path -------------------------------------------------------
 
 
@@ -938,6 +1015,7 @@ def main() -> int:
     check_basket(basket, device)
 
     print("training rate: " + json.dumps(time_training(device)))
+    print("training iteration (traced): " + json.dumps(trace_iteration(device)))
     print("serving latency: " + json.dumps(time_serving(run)))
     print("basket path: " + json.dumps(time_basket(basket, device)))
     k1.update(time_k1(Ws, bs, device))

@@ -1,6 +1,6 @@
 // Shared pieces of the Hopper kernels: the MLP weight table passed by value,
-// bf16 operand rounding, the CUDA-core batch-tile dot product (K2's backward
-// dots), the tensor-core layer (K1, K2's recompute, K3) and Philox4x32-10.
+// bf16 operand rounding, the tensor-core layer (K1, K2's row chain, K3) and
+// Philox4x32-10.
 //
 // Every dot product rounds both operands to bf16 with round-to-nearest-even
 // and accumulates in f32. A bf16 x bf16 product is exact in f32, so a kernel
@@ -52,47 +52,7 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// For every output column o < n_out and every tile row b < TILE:
-//   epi(b, o, sum_k A[b*lda + k] * bf16(W[k*sk + o*so]))
-// A lives in shared memory, is already rounded to bf16, has lda % 4 == 0 and a
-// 16-byte aligned base. One thread owns one output column at a time and keeps
-// the TILE sums in registers, so each weight read from L2 feeds TILE FMAs and
-// each A read is a broadcast.
-template <int TILE, typename Epilogue>
-__device__ __forceinline__ void tile_dot(const float* A, int lda, int K,
-                                         const float* __restrict__ W, int sk, int so,
-                                         int n_out, Epilogue epi) {
-  const int K4 = K & ~3;
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    const float* wcol = W + (size_t)o * so;
-    float acc[TILE];
-#pragma unroll
-    for (int b = 0; b < TILE; ++b) acc[b] = 0.f;
-    for (int k = 0; k < K4; k += 4) {
-      const float w0 = bf16_round(__ldg(wcol + (size_t)(k + 0) * sk));
-      const float w1 = bf16_round(__ldg(wcol + (size_t)(k + 1) * sk));
-      const float w2 = bf16_round(__ldg(wcol + (size_t)(k + 2) * sk));
-      const float w3 = bf16_round(__ldg(wcol + (size_t)(k + 3) * sk));
-#pragma unroll
-      for (int b = 0; b < TILE; ++b) {
-        const float4 a = *reinterpret_cast<const float4*>(A + b * lda + k);
-        acc[b] = fmaf(a.x, w0, acc[b]);
-        acc[b] = fmaf(a.y, w1, acc[b]);
-        acc[b] = fmaf(a.z, w2, acc[b]);
-        acc[b] = fmaf(a.w, w3, acc[b]);
-      }
-    }
-    for (int k = K4; k < K; ++k) {
-      const float w0 = bf16_round(__ldg(wcol + (size_t)k * sk));
-#pragma unroll
-      for (int b = 0; b < TILE; ++b) acc[b] = fmaf(A[b * lda + k], w0, acc[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < TILE; ++b) epi(b, o, acc[b]);
-  }
-}
-
-// ---- Tensor-core tiles (K1, K2's recompute, K3) ---------------------------
+// ---- Tensor-core tiles (K1, K2's row chain, K3) ----------------------------
 //
 // tc_layer computes, for a block's tile of rows,
 //   post(row, col, sum_k A[row, k] * bf16(Wop[k, col]))
@@ -342,7 +302,8 @@ __device__ __forceinline__ void tc_layer(const bf16* A, int lda, int K,
 // The layer of a 16-row tile, K1's forward and sweep: one m-tile, 16 warps
 // across the columns, one column pair each, 256 columns a pass. K2 recomputes
 // K1's p_k and r_k with this same routine, so its backward differentiates
-// the forward whose u and Z the loss used, bit for bit.
+// the forward whose u and Z the loss used, bit for bit, and runs its own
+// row dots on it.
 constexpr int kRow16Cols = 16 * 16;
 constexpr int kRow16StageElems = TcStage<kRow16Cols, false>::kElems > TcStage<kRow16Cols, true>::kElems
                                      ? TcStage<kRow16Cols, false>::kElems

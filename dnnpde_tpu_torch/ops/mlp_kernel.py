@@ -5,11 +5,14 @@ Counterparts of ``dnnpde_tpu/ops/mlp_kernel.py::mlp_u_z_fwd_pallas`` and
 ``mlp_u_z_bwd_pallas``. K1 (``csrc/mlp_u_z_fwd.cu``) runs the forward pass
 and the Z-sweep for a tile of rows on tensor cores (``mma.sync``), with the
 tile's activations in shared memory; only x, u and Z touch device memory.
-K2 (``csrc/mlp_u_z_bwd.cu``) recomputes them with K1's own tensor-core
-layer, bit for bit, and runs the Z-path adjoint and the u-path backward on
-CUDA cores, with per-block partial weight gradients summed in a fixed order
-by a second kernel. Matmul operands are
-rounded to bf16 and accumulated in f32, as on the TPU.
+K2 (``csrc/mlp_u_z_bwd.cu``) is two launches on tensor cores: a row chain,
+one block per 16-row tile, recomputes K1's forward with K1's own layer, bit
+for bit, runs the Z-path adjoint and the u-path backward on that same layer
+and writes x_bar, the weight gradients' bf16 operands and per-tile column
+sums to a scratch buffer; a second kernel forms each weight gradient as one
+product over the batch, a block per output tile, and sums the column sums
+in tile order. Matmul operands are rounded to bf16 and accumulated in f32,
+as on the TPU.
 
 ``mlp_u_z_fwd`` and ``mlp_u_z_bwd`` launch their kernels for CUDA tensors
 and raise on anything they do not take. For CPU tensors they compute the
@@ -28,7 +31,6 @@ import torch
 Tensor = torch.Tensor
 
 MAX_LAYERS = 8  # DNNPDE_MAX_LAYERS in csrc/common.cuh
-BWD_TILE = 16  # kTile in csrc/mlp_u_z_bwd.cu: rows per tile of K2
 
 
 def bf16_dot(a: Tensor, w: Tensor) -> Tensor:
@@ -81,9 +83,12 @@ def _lib(name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         n_ptrs = {"mlp_u_z_fwd": 6, "mlp_u_z_bwd": 9}[name]
-        n_ints = {"mlp_u_z_fwd": 2, "mlp_u_z_bwd": 3}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if name == "mlp_u_z_bwd":
+            size = lib.mlp_u_z_bwd_scratch_bytes
+            size.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            size.restype = ctypes.c_longlong
     return lib
 
 
@@ -197,18 +202,18 @@ def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
     if B == 0:
         flat.zero_()
         return tuple(grads[:len(Ws)]), tuple(grads[len(Ws):]), x_bar
-    # one partial gradient per block: at most one block per SM
-    tiles = -(-B // BWD_TILE)
-    grid = min(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    partial = torch.empty(grid * flat.numel(), dtype=torch.float32, device=x.device)
     lib = _lib("mlp_u_z_bwd")
+    widths_c = _build.int_array(widths)
+    # the weight gradients' bf16 operands and the per-tile column sums
+    scratch = torch.empty(lib.mlp_u_z_bwd_scratch_bytes(widths_c, len(Ws), B),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.mlp_u_z_bwd(
             x.data_ptr(), u_bar.data_ptr(), z_bar.data_ptr(), x_bar.data_ptr(),
-            flat.data_ptr(), partial.data_ptr(),
+            flat.data_ptr(), scratch.data_ptr(),
             _build.pointer_array(Ws), _build.pointer_array(bs),
-            _build.int_array(widths), len(Ws), B, grid, stream,
+            widths_c, len(Ws), B, stream,
         )
     _build.check(lib, code, "mlp_u_z_bwd")
     mlp_u_z_bwd.launches += 1

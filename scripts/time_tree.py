@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Training rates and K1's time by batch of one checkout of this repo, on one
-NVIDIA GPU, for comparing two commits within one call:
+"""Training rates, K1's and K2's times and one traced training iteration of
+one checkout of this repo, on one NVIDIA GPU, for comparing two commits
+within one call:
 
     python3 scripts/time_tree.py TREE
     python3 scripts/time_tree.py TREE --basket-seeds 1-8
@@ -8,11 +9,15 @@ NVIDIA GPU, for comparing two commits within one call:
 TREE is the root of a checkout (for example a ``git archive`` of the parent
 commit unpacked under ``build/``). The script imports that tree's
 ``chip_smoke.py`` and ``dnnpde_tpu_torch``, builds the tree's kernels into
-the tree's own ``build/``, and runs its ``time_training`` (iterations/s at
-M = 100, 512, 2048 on the kernel path and on the f32 autograd path) and its
-``time_k1`` (K1 at B = 4096 and 100, and by batch) at full width, FC-Sine
-[101, 256 x 4, 1] with weights from seed 0. It prints the card's name and
-power limit and, last, one JSON line with the rates. Host-clock rates move
+the tree's own ``build/``, and runs its ``time_k1`` (K1 at B = 4096 and 100,
+and by batch), its ``time_k2`` (K2, its plain version and its library
+yardstick at B = 100 and 2048) and its ``time_training`` (iterations/s at
+M = 100, 512, 2048 on the kernel path and on the f32 autograd path) at full
+width, FC-Sine [101, 256 x 4, 1] with weights from seed 0, then this
+checkout's ``chip_smoke.trace_iteration`` on the tree's package (a BSB-100
+kernel-path iteration at M = 100 under ``torch.profiler``: wall ms,
+device-busy ms, K1's and K2's share). It prints the card's name and power
+limit and, last, one JSON line with the numbers. Host-clock rates move
 between calls, so compare trees within one call, in the order parent,
 change, change, parent, one process per tree.
 
@@ -25,10 +30,13 @@ the spread of the 400-iteration loss fall over seeds, for one tree's kernels.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
 
 
 def basket_falls(chip_smoke, device, seeds) -> dict:
@@ -50,6 +58,16 @@ def basket_falls(chip_smoke, device, seeds) -> dict:
                       "y0": float(res.y0_history[-1])}
         print(f"seed {seed}: {json.dumps(runs[seed])}", flush=True)
     return runs
+
+
+def trace_iteration(device) -> dict:
+    """This checkout's ``chip_smoke.trace_iteration``, run on whatever
+    ``dnnpde_tpu_torch`` is imported (the tree's, whose own chip_smoke.py
+    may predate it)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.trace_iteration(device)
 
 
 def main() -> int:
@@ -86,8 +104,11 @@ def main() -> int:
         return 0
     Ws, bs = chip_smoke.weights(chip_smoke.make_net(device))
     k1 = chip_smoke.time_k1(Ws, bs, device)
+    k2 = chip_smoke.time_k2(Ws, bs, device)
     rates = chip_smoke.time_training(device)
-    print(json.dumps({"tree": str(tree), "training": rates, "k1_B4096_ms": k1["ms"]}))
+    iteration = trace_iteration(device)
+    print(json.dumps({"tree": str(tree), "training": rates, "k1_B4096_ms": k1["ms"],
+                      "k2_B100": k2, "iteration": iteration}))
     return 0
 
 

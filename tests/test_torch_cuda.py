@@ -216,8 +216,36 @@ def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
     W_ref, b_ref, x_ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
     for a, r in zip([*W_bars, *b_bars, x_bar], [*W_ref, *b_ref, x_ref]):
         _assert_kernel_close(a, r)
-    # per-block partials summed in a fixed order: no run-to-run change
+    # every sum in a fixed order, no atomics: no run-to-run change
     for a, b in zip([*W_bars, *b_bars, x_bar], [*again[0], *again[1], again[2]]):
+        assert torch.equal(a, b)
+
+
+# K2's row chain and weight-gradient kernel at ragged shapes: full width at
+# batches that are no multiple of its 16-row tile, and K1's ragged nets, whose
+# inputs and hidden widths are no multiple of the gradient's 32 x 64 tiles
+# (9-300-40's 300-wide layer also takes two passes of the row chain's layers).
+K2_RAGGED = [("full", 17), ("full", 300)] + [
+    (net, B) for net in RAGGED_NETS for B in (1, 17, 100, 300, 2048)
+]
+
+
+@pytest.mark.parametrize("net, B", K2_RAGGED)
+def test_k2_matches_plain_version_and_repeats_bitwise_at_ragged_shapes(cuda_device, net, B):
+    layers = FULL if net == "full" else RAGGED_NETS[net]
+    rng = np.random.default_rng(B + len(net))
+    Ws = _on(cuda_device, [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+                           for a, b in zip(layers[:-1], layers[1:])])
+    bs = _on(cuda_device, [(0.1 * rng.normal(size=(b,))).astype(np.float32) for b in layers[1:]])
+    x, u_bar, z_bar = _on(cuda_device, [rng.normal(size=s).astype(np.float32)
+                                        for s in ((B, layers[0]), (B, 1), (B, layers[0]))])
+    out = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    torch.cuda.synchronize()
+    ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+    for a, r, b in zip([*out[0], *out[1], out[2]], [*ref[0], *ref[1], ref[2]],
+                       [*again[0], *again[1], again[2]]):
+        _assert_kernel_close(a, r)
         assert torch.equal(a, b)
 
 
