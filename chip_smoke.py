@@ -17,8 +17,9 @@ built for CUDA. It
    on the same inputs must also agree bit for bit; K3 (``rollout_paths``)
    at M = 16384, N = 50, D = 100 with the BSB coefficients, in both its
    explicit-dW and its seed variant; K4 (``gbm_terminal``) at M = 131072,
-   N = 50, D = 100, uncorrelated and correlated, value by value, bitwise
-   across two launches and apart across two seeds, then the statistics
+   D = 100, at N = 50 uncorrelated and correlated and at the basket path's
+   N = 1, value by value, bitwise across two launches and apart across two
+   seeds, then the statistics
    checks of ``scripts/verify_tpu_kernels.py`` (mean, log-std,
    correlation, and the K4 basket price against Black-Scholes);
 4. holds one full-width training step on the kernels (``fused_net_u="cuda"``)
@@ -29,10 +30,12 @@ built for CUDA. It
    launch exactly 51 x 400 times, the mean logged loss must fall 10x and
    Y0 must move toward the exact 77.1;
 6. drives the serving path from the trained ``Trainer``: ``save_solution``
-   -> ``load_solution`` -> ``u_and_grad`` at batches 1, 100 and 4096 and
-   one ``surface``, then ``predict_paths_fast`` with M = 16384, N = 50; the
-   launch counts of K1 and K3 must have risen; the outputs are checked
-   against the plain autograd ``make_net_u`` and the plain rollout;
+   -> ``load_solution`` -> ``u_and_grad`` at batches 1, 100 and 4096 (f32,
+   as the JAX package serves) and one ``surface``, then
+   ``Trainer.predict`` on the kernel path (K1 exactly N + 1 times) and
+   ``predict_paths_fast`` with M = 16384, N = 50 (K3); the served (u, Z)
+   are held to 1e-5 of max|.| of the plain autograd ``make_net_u``, the
+   paths against the plain rollout;
 7. drives the basket-call path: ``Trainer`` on BasketCallOption(D=100)
    for 400 iterations on K1 + K2 (exactly 51 x 400 launches each, the mean
    logged loss must fall 10x), the CLI's oracle ``basket_call_mc`` (200k
@@ -51,8 +54,9 @@ built for CUDA. It
    K2's share of the device time), times the serving requests and both
    oracles (host clock to result), then each kernel, its plain version and
    one PyTorch call that computes the same function (the library
-   yardstick, which the port never calls), and prints one JSON line of
-   kernels and, last, the device line.
+   yardstick, which the port never calls; none computes K4's), and prints
+   one JSON line of kernels (K4's at the basket path's N = 1) and, last,
+   the device line.
 
 Any failure ends the script with a non-zero exit code and no result line.
 """
@@ -87,7 +91,7 @@ TRAIN_RATE_MS = (100, 512, 2048)  # bench.py's rows
 # stays far below the largest, which a wrong index or a race would not.
 REL_TOL = 1e-2
 MEAN_REL_TOL = 1e-4
-SERVE_REL_TOL = 2e-2  # bf16-operand kernel vs f32 autograd, relative to max|f32|
+SERVE_REL_TOL = 1e-5  # served f32 (u, Z) vs f32 autograd, relative to max|f32|
 STEP_REL_TOL = 2e-2  # loss and gradients, kernel step vs f32 step, relative to max|f32|
 BASKET_FLIP_TOL = 1e-3  # the basket's paths: largest difference, relative to sum|W_L|
 # K1's kernel ms by batch before the tensor-core redesign (PERF.md's kernel
@@ -95,12 +99,13 @@ BASKET_FLIP_TOL = 1e-3  # the basket's paths: largest difference, relative to su
 K1_CUDA_CORE_MS = {1: 0.247, 100: 0.2482, 4096: 0.395}
 
 # K4 against its plain version, value by value, relative to each value: both
-# draw the same Philox stream and sum, correlate and round in the same order;
-# what differs is the last place of libdevice's logf/sincosf/expf against
-# PyTorch's log/sin/cos/exp, carried through the 50-term sum and amplified by
-# exp (~1e-7 expected). One wrong normal moves a value by about σ√dt ≈ 3e-2.
+# draw the same Philox stream and sum and correlate in the same order; the
+# kernel takes the SFU's log2, sqrt, sin, cos and exp (absolute error ~2^-21
+# per normal, ~1e-6 of S_T over a 50-term sum, csrc/gbm_terminal.cu) where
+# the plain version takes PyTorch's accurate ones. One wrong normal moves a
+# value by about σ√dt ≈ 3e-2.
 K4_RTOL = 1e-5
-K4_M = 131072  # scripts/verify_tpu_kernels.py's shape
+K4_M = 131072  # scripts/verify_tpu_kernels.py's shape and the basket path's paths
 BASKET_ORACLE_PATHS = 200_000  # the CLI's oracle for --problem basket
 BASKET_DELTA_PATHS = 100_000
 BASKET_GREEK_BATCH = 16
@@ -455,9 +460,13 @@ def time_k3(Ws, bs, x0, dWs, device, M=M_PATHS, N=N_STEPS) -> tuple[dict, dict]:
 # ---- K4 -------------------------------------------------------------------
 
 
+K4_VARIANTS = ("uncorrelated", "correlated", "basket")
+
+
 def k4_cases(device) -> dict:
-    """scripts/verify_tpu_kernels.py's two K4 calls: (seed, S0, r, sigma, T,
-    N, M, chol) uncorrelated and with a random correlation matrix."""
+    """K4's calls (seed, S0, r, sigma, T, N, M) and L: scripts/verify_tpu_kernels.py's
+    two, uncorrelated and with a random correlation matrix, at N = 50, and
+    the basket path's (fused_basket_call_mc's defaults: N = 1, no L)."""
     from dnnpde_tpu_torch.sim import cholesky_factor, generate_correlation_matrix
 
     C = generate_correlation_matrix(D, "random_correlation", seed=1)
@@ -466,12 +475,13 @@ def k4_cases(device) -> dict:
     return {
         "uncorrelated": ((0, ones, 0.05, 0.2, 1.0, N_STEPS, K4_M), None),
         "correlated": ((1, ones, 0.0, 0.3, 1.0, N_STEPS, K4_M), L),
+        "basket": ((0, ones, 0.05, 0.2, 1.0, 1, K4_M), None),
         "C": C,
     }
 
 
 def check_k4(device) -> dict:
-    """K4 value by value against its plain version in both variants, two
+    """K4 value by value against its plain version at all three shapes, two
     launches bitwise, two seeds apart, then verify_tpu_kernels.py's
     statistics checks."""
     from dnnpde_tpu_torch.numerics import black_scholes_call
@@ -483,7 +493,7 @@ def check_k4(device) -> dict:
 
     cases = k4_cases(device)
     worst, out = 0.0, {}
-    for name in ("uncorrelated", "correlated"):
+    for name in K4_VARIANTS:
         args, L = cases[name]
         st = gbm_terminal(*args, chol=L)
         again = gbm_terminal(*args, chol=L)
@@ -492,7 +502,7 @@ def check_k4(device) -> dict:
         rel = float(((st - ref).abs() / ref.abs()).max())
         err = float((st - ref).abs().max())
         same = float((st == ref).float().mean())
-        print(f"K4 {name} M={K4_M} N={N_STEPS} D={D}: max|d|={err:.3e}, max rel {rel:.3e} "
+        print(f"K4 {name} M={K4_M} N={args[5]} D={D}: max|d|={err:.3e}, max rel {rel:.3e} "
               f"(tol {K4_RTOL:g} of each value), share bitwise equal {same:.4f}")
         _require(rel <= K4_RTOL, f"K4 {name} disagrees with its plain version")
         _require(torch.equal(st, again), f"K4 {name}: two launches differ")
@@ -520,16 +530,6 @@ def check_k4(device) -> dict:
     return {"max_abs_err": worst}
 
 
-def library_gbm_terminal(S0, r, sigma, T, N, M, L):
-    """Yardstick for K4: the JAX package's non-TPU math as one PyTorch
-    expression, S0·exp(N·drift + σ√dt·(√N·randn(M, D)) @ Lᵀ)."""
-    dt = T / N
-    z = (N ** 0.5) * torch.randn((M, S0.shape[0]), device=S0.device)
-    if L is not None:
-        z = z @ L.T
-    return S0 * torch.exp(N * (r - 0.5 * sigma**2) * dt + sigma * dt**0.5 * z)
-
-
 def sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -541,11 +541,15 @@ def sm_clock_hz() -> float:
 def k4_bound(M: int, N: int, D: int, L, clock_hz: float) -> dict:
     """The least time of K4's work on an H100: the largest of its bytes over
     HBM, its transcendentals over the SFUs, Philox's integer multiplies and
-    the correlation's f32 flops (lower triangle only)."""
+    the correlation's f32 flops (lower triangle only). Philox: a 32 x 32 ->
+    64-bit product is two 32-bit multiplies; the calls j = 0 and 1 of one
+    (pair, step, group) need 34 products, since round 0 depends on (pair,
+    group) only (2 products per item) and the two calls share two products
+    of rounds 1 and 2 (csrc/gbm_terminal.cu)."""
     normals = M * N * D
     sfu = 2 * normals + M * D  # ½ log + ½ sqrt + sin or cos per normal; exp per output
-    calls = 2 * (M // 2) * N * ((D + 3) // 4)  # two Philox calls per (pair, step, group)
-    imul = 40 * calls  # 10 rounds x 4 32-bit multiplies
+    items = (M // 2) * ((D + 3) // 4)
+    imul = 2 * items * (34 * N + 2)
     flops = 0 if L is None else M * D * (D + 1)
     nbytes = 4 * M * D + 3 * 4 * D + (0 if L is None else 4 * D * D)
     terms = {
@@ -559,21 +563,51 @@ def k4_bound(M: int, N: int, D: int, L, clock_hz: float) -> dict:
             "bound_term": by, "terms_ms": {k: 1e3 * v for k, v in terms.items()}}
 
 
-def time_k4(device) -> tuple[dict, dict]:
+def k4_kernel_call(args, L, device):
+    """A function that launches K4's C entry point on inputs the wrapper
+    prepared once: the kernel's own time, without the wrapper's host work
+    (input tensors, checks), which is most of a call at N = 1."""
+    from dnnpde_tpu_torch.ops import _build
+    from dnnpde_tpu_torch.ops import path_kernel as pk
+
+    seed, S0, r, sigma, T, N, M = args
+    S0, a, b, L = pk._inputs(S0, r, sigma, T, N, L, device)
+    out = torch.empty((M, S0.shape[0]), dtype=torch.float32, device=device)
+    lib = pk._lib()
+    ptrs = (S0.data_ptr(), a.data_ptr(), b.data_ptr(), None if L is None else L.data_ptr(),
+            out.data_ptr())
+
+    def launch():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(lib, lib.gbm_terminal(*ptrs, M, S0.shape[0], N, seed, stream), "gbm_terminal")
+        return out
+
+    return launch
+
+
+def time_k4(device) -> dict:
+    """K4 (its C entry point on prepared inputs; ``call_ms`` through the
+    wrapper) and its plain version at each of k4_cases' shapes, with the
+    bound. No single PyTorch call computes K4's function, so library_ms is
+    None."""
     from dnnpde_tpu_torch.ops.path_kernel import gbm_terminal, gbm_terminal_reference
 
     clock = sm_clock_hz()
     rows = {}
-    for name in ("uncorrelated", "correlated"):
-        args, L = k4_cases(device)[name]
+    cases = k4_cases(device)
+    for name in K4_VARIANTS:
+        args, L = cases[name]
         seed, S0, r, sigma, T, N, M = args
-        ms = time_ms(lambda: gbm_terminal(*args, chol=L), iters=10)
+        launch = k4_kernel_call(args, L, device)
+        _require(torch.equal(launch(), gbm_terminal(*args, chol=L)), f"K4 {name}: direct launch")
+        iters = 10 if N > 1 else 50
+        ms = time_ms(launch, iters=iters)
+        call_ms = time_ms(lambda: gbm_terminal(*args, chol=L), iters=iters)
         plain_ms = time_ms(lambda: gbm_terminal_reference(*args, chol=L), iters=2, warmup=1)
-        library_ms = time_ms(lambda: library_gbm_terminal(S0, r, sigma, T, N, M, L), iters=10)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        rows[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
                       **k4_bound(M, N, S0.shape[0], L, clock), "shape": f"M={M} N={N} D={D} {name}"}
     print(f"K4 by variant (SM clock {clock / 1e6:.0f} MHz): " + json.dumps(rows))
-    return rows["uncorrelated"], rows["correlated"]
+    return rows
 
 
 # ---- the training path ------------------------------------------------------
@@ -777,6 +811,9 @@ def drive_serving(trainer, device) -> dict:
         sol = load_solution(path, device=device)
         served = {B: sol.u_and_grad(*reqs[B]) for B in SERVE_BATCHES}
         surface = sol.surface(t_grid.numpy(), x_grid.numpy())
+    # the verify skill's flagship read-back, on K1 under fused_net_u="cuda"
+    t_star, W_star = trainer.fetch_minibatch(torch.Generator(device=device).manual_seed(5))
+    X_star, Y_star = trainer.predict(prob.x0[None], t_star, W_star)
     Y = predict_paths_fast(trainer, M=M_PATHS, seed=4321)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -784,7 +821,7 @@ def drive_serving(trainer, device) -> dict:
     counts = read_counts()
     print(f"serving path: {seconds:.3f} s, launches {json.dumps(counts)}")
     return {"counts": counts, "served": served, "surface": surface, "Y": Y,
-            "reqs": reqs, "trainer": trainer, "sol": sol}
+            "predicted": (X_star, Y_star), "reqs": reqs, "trainer": trainer, "sol": sol}
 
 
 def time_serving(run) -> dict:
@@ -805,13 +842,18 @@ def time_serving(run) -> dict:
 
 def check_serving(run, device) -> None:
     """What the serving path returned, against the plain autograd net_u and
-    the plain rollout."""
+    the plain rollout; K1 launched once per step of the one predict call."""
     from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths_reference
     from dnnpde_tpu_torch.solver import make_net_u
 
-    for name in ("mlp_u_z_fwd", "rollout_paths"):
-        n = run["counts"][name]
-        _require(n > 0, f"the serving path launched {name} {n} times")
+    n = run["counts"]["mlp_u_z_fwd"]
+    _require(n == N_STEPS + 1, f"the serving path launched mlp_u_z_fwd {n} times, "
+             f"not {N_STEPS + 1} (one Trainer.predict)")
+    _require(run["counts"]["rollout_paths"] > 0, "the serving path never launched rollout_paths")
+    X_star, Y_star = run["predicted"]
+    M_star = run["trainer"].M
+    _require(X_star.shape == (M_star, N_STEPS + 1, D) and Y_star.shape == (M_star, N_STEPS + 1, 1)
+             and bool(np.isfinite(Y_star).all()), "Trainer.predict shapes or values")
     net = run["trainer"].params
     net_u = make_net_u(net)
     for B, (u, Z) in run["served"].items():
@@ -821,7 +863,7 @@ def check_serving(run, device) -> None:
         _, ru = _rel_err(torch.from_numpy(u), u_ref.cpu())
         _, rz = _rel_err(torch.from_numpy(Z), Z_ref.cpu())
         print(f"served B={B}: u {u.shape} Z {Z.shape} vs f32 autograd: rel du {ru:.3e} "
-              f"rel dZ {rz:.3e} tol rel {SERVE_REL_TOL:g}")
+              f"rel dZ {rz:.3e} tol rel {SERVE_REL_TOL:g} of max|.|")
         _require(u.shape == (B, 1) and Z.shape == (B, D), f"served shapes at B={B}")
         _require(bool(np.isfinite(u).all() and np.isfinite(Z).all()), f"served non-finite at B={B}")
         _require(ru <= SERVE_REL_TOL and rz <= SERVE_REL_TOL, f"served (u, Z) off at B={B}")
@@ -1023,9 +1065,7 @@ def main() -> int:
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
     k3.update(k3_seed)
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
-    k4_unc, k4_corr = time_k4(device)
-    k4.update(k4_unc)
-    print("K4 correlated variant: " + json.dumps(k4_corr))
+    k4.update(time_k4(device)["basket"])  # the basket path's shape
 
     paths = {"training": train["counts"], "serving": run["counts"], "basket": basket["counts"]}
 

@@ -333,14 +333,33 @@ __device__ __forceinline__ void tile_head(const bf16* A, int lda, int H,
 
 // Philox4x32-10 (Salmon et al., SC'11): counter-based, so a value depends only
 // on (counter, key) and not on which block or thread draws it.
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;  // key increments
+
+// hi:lo = m * a in one IMAD.WIDE (nvcc splits __umulhi and * into two
+// instructions for some of the products)
+__device__ __forceinline__ void philox_mulhilo(uint32_t m, uint32_t a, uint32_t& hi,
+                                               uint32_t& lo) {
+  uint64_t p;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(p) : "r"(a), "r"(m));
+  hi = static_cast<uint32_t>(p >> 32);
+  lo = static_cast<uint32_t>(p);
+}
+
+// One round with the round's keys (k0, k1).
+__device__ __forceinline__ uint4 philox_round(uint4 c, uint32_t k0, uint32_t k1) {
+  uint32_t hi0, lo0, hi1, lo1;
+  philox_mulhilo(kPhiloxM0, c.x, hi0, lo0);
+  philox_mulhilo(kPhiloxM1, c.z, hi1, lo1);
+  return make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+}
+
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
+    c = philox_round(c, k0, k1);
+    k0 += kPhiloxW0;
+    k1 += kPhiloxW1;
   }
   return c;
 }

@@ -16,11 +16,13 @@ group g, j) and keeps the TPU kernel's transform:
   path 2p + 1, with r = √(−2 log u1).
 
 The stream depends on neither the block shape nor ``tile_m``.
-:func:`gbm_terminal_reference` reproduces it in PyTorch integer arithmetic,
-sums in the kernel's order (steps n = 0…N−1; assets j = 0…i of L's row i) and
-rounds every product and sum separately as the kernel does, so the two agree
-value by value up to the last-place differences between libdevice's
-log/sin/cos/exp and PyTorch's.
+:func:`gbm_terminal_reference` computes the same function from the same
+stream in PyTorch (Philox in integer arithmetic, accurate log/sqrt/sin/cos/exp,
+sums in step order and L's row i summed over j = 0…i) and is the definition
+the kernel is held to: each kernel value lies within 1e-5 of its plain value.
+The kernel takes the special-function unit's approximations of the
+transcendentals (``csrc/gbm_terminal.cu`` says where and why they stay within
+that), so the two are not bitwise equal; two launches of the kernel are.
 """
 
 from __future__ import annotations
@@ -108,8 +110,8 @@ def gbm_terminal_reference(
     seed: int, S0, r: float, sigma, T: float, N: int, M: int,
     chol=None, device=None,
 ) -> Tensor:
-    """Plain version of K4: the same Philox stream, sums and rounding in
-    PyTorch, on ``device`` (None: S0's device if it is a tensor, else the
+    """Plain version of K4: the same Philox stream and sums in PyTorch, with
+    accurate transcendentals, on ``device`` (None: S0's device if it is a tensor, else the
     first CUDA card). M must be even."""
     if M % 2 != 0 or N < 1:
         raise ValueError(f"need an even M and N >= 1, got M={M}, N={N}")

@@ -2,9 +2,11 @@
 
 The artifact is a ``torch.save`` file of the weights in the JAX layout plus
 what is needed to evaluate them (``layers``, ``activation``, ``dim``). It is
-not a StableHLO program: loading it needs this package. For an FC-sine net
-``ServedSolution`` computes (u, Z) on kernel K1 (``ops/mlp_kernel.py``) with
-bf16 dot operands; tanh and relu nets take the plain f32 ``mlp_u_z``. Output
+not a StableHLO program: loading it needs this package. ``ServedSolution``
+computes (u, Z) in f32 with the fused ``mlp_u_z`` for every activation, as
+the JAX package's ``_solution_fn`` serves u in f32 and Z by one VJP; kernel
+K1 (bf16 dot operands) serves ``Trainer.predict`` under
+``SolverConfig(fused_net_u="cuda")``, as the Pallas K1 does in JAX. Output
 transforms and stochastic nets are not ported yet.
 """
 
@@ -17,7 +19,6 @@ import torch
 
 from dnnpde_tpu_torch.nets.networks import MLP
 from dnnpde_tpu_torch.ops.fused_net_u import _ACT_DERIVS, mlp_u_z
-from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_fwd
 from dnnpde_tpu_torch.params import extract_mlp_params
 from dnnpde_tpu_torch.runtime import default_device
 
@@ -72,10 +73,7 @@ class ServedSolution:
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device).reshape(-1, self.dim)
         t = torch.as_tensor(t, dtype=torch.float32, device=self.device).reshape(-1, 1)
         x = torch.cat([t.expand(X.shape[0], 1), X], dim=1)
-        if self.activation == "sine":
-            u, z_full = mlp_u_z_fwd(self.Ws, self.bs, x)
-        else:
-            u, z_full = mlp_u_z(self.Ws, self.bs, x, self.activation)
+        u, z_full = mlp_u_z(self.Ws, self.bs, x, self.activation)
         return u, z_full[:, 1:]
 
     def u(self, t, X) -> np.ndarray:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Training rates, K1's and K2's times and one traced training iteration of
-one checkout of this repo, on one NVIDIA GPU, for comparing two commits
-within one call:
+"""Training rates, K1's, K2's and K4's times and one traced training
+iteration of one checkout of this repo, on one NVIDIA GPU, for comparing two
+commits within one call:
 
     python3 scripts/time_tree.py TREE
     python3 scripts/time_tree.py TREE --basket-seeds 1-8
@@ -14,10 +14,13 @@ and by batch), its ``time_k2`` (K2, its plain version and its library
 yardstick at B = 100 and 2048) and its ``time_training`` (iterations/s at
 M = 100, 512, 2048 on the kernel path and on the f32 autograd path) at full
 width, FC-Sine [101, 256 x 4, 1] with weights from seed 0, then this
-checkout's ``chip_smoke.trace_iteration`` on the tree's package (a BSB-100
-kernel-path iteration at M = 100 under ``torch.profiler``: wall ms,
-device-busy ms, K1's and K2's share). It prints the card's name and power
-limit and, last, one JSON line with the numbers. Host-clock rates move
+checkout's ``chip_smoke.time_k4`` and ``chip_smoke.trace_iteration`` on the
+tree's package: K4 (``gbm_terminal``), its plain version and its bound at
+M = 131072, D = 100, N = 50 uncorrelated and correlated and the basket
+path's N = 1, and a BSB-100 kernel-path iteration at M = 100 under
+``torch.profiler`` (wall ms, device-busy ms, K1's and K2's share). It
+prints the card's name and power limit and, last, one JSON line with the
+numbers. Host-clock rates move
 between calls, so compare trees within one call, in the order parent,
 change, change, parent, one process per tree.
 
@@ -60,14 +63,14 @@ def basket_falls(chip_smoke, device, seeds) -> dict:
     return runs
 
 
-def trace_iteration(device) -> dict:
-    """This checkout's ``chip_smoke.trace_iteration``, run on whatever
+def this_chip_smoke():
+    """This checkout's ``chip_smoke``, whose functions then run on whatever
     ``dnnpde_tpu_torch`` is imported (the tree's, whose own chip_smoke.py
-    may predate it)."""
+    may predate them)."""
     spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.trace_iteration(device)
+    return module
 
 
 def main() -> int:
@@ -105,10 +108,12 @@ def main() -> int:
     Ws, bs = chip_smoke.weights(chip_smoke.make_net(device))
     k1 = chip_smoke.time_k1(Ws, bs, device)
     k2 = chip_smoke.time_k2(Ws, bs, device)
+    here = this_chip_smoke()
+    k4 = here.time_k4(device)
     rates = chip_smoke.time_training(device)
-    iteration = trace_iteration(device)
+    iteration = here.trace_iteration(device)
     print(json.dumps({"tree": str(tree), "training": rates, "k1_B4096_ms": k1["ms"],
-                      "k2_B100": k2, "iteration": iteration}))
+                      "k2_B100": k2, "k4": k4, "iteration": iteration}))
     return 0
 
 

@@ -297,37 +297,66 @@ def test_fused_function_gradients_match_plain_function(cuda_device):
 
 
 # K4 against its plain version, value by value: both draw the same Philox
-# stream and sum, correlate and round in the same order; what differs is the
-# last place of libdevice's logf/sincosf/expf against PyTorch's log/sin/cos/exp,
-# carried through an N-term sum and amplified by exp. 1e-5 of each value leaves
-# room for that; one wrong normal moves a value by about σ√dt ≈ 3e-2.
+# stream and sum and correlate in the same order; the kernel takes the SFU's
+# log2, sqrt, sin, cos and exp where the plain version takes PyTorch's accurate
+# ones (~1e-6 of a value over a 50-term sum, csrc/gbm_terminal.cu). 1e-5 of
+# each value leaves room for that; one wrong normal moves a value by about
+# σ√dt ≈ 3e-2.
 K4_RTOL = 1e-5
 
 
-# D = 256: L (256 KB) no longer fits in shared memory beside the z-tile and is
-# read from global memory; D = 1024: the z-tile of 32 path pairs (256 KB) does
-# not fit either and the launcher halves it to 16 pairs.
-@pytest.mark.parametrize("D", [1, 7, 100, 256, 1024])
-@pytest.mark.parametrize("correlated", [False, True])
-def test_k4_matches_plain_version_and_repeats_bitwise(cuda_device, D, correlated):
-    M, N = 2048, 12
+def _k4_case(D, correlated, M, N, seed=2024):
     rng = np.random.default_rng(D)
     S0 = rng.uniform(0.5, 1.5, size=D).astype(np.float32)
     sigma = rng.uniform(0.1, 0.4, size=D).astype(np.float32)
     chol = None
     if correlated:
         chol = cholesky_factor(generate_correlation_matrix(D, "random_correlation", seed=D))
-    args = (2024, S0, 0.05, sigma, 1.0, N, M)
+    return (seed, S0, 0.05, sigma, 1.0, N, M), chol
+
+
+def _check_k4(device, args, chol, tile_m=256):
     before = gbm_terminal.launches
-    out = gbm_terminal(*args, chol=chol, device=cuda_device)
-    again = gbm_terminal(*args, chol=chol, device=cuda_device)
-    other = gbm_terminal(2025, *args[1:], chol=chol, device=cuda_device)
+    out = gbm_terminal(*args, chol=chol, tile_m=tile_m, device=device)
+    again = gbm_terminal(*args, chol=chol, tile_m=tile_m, device=device)
+    other = gbm_terminal(args[0] + 1, *args[1:], chol=chol, tile_m=tile_m, device=device)
     torch.cuda.synchronize()
     assert gbm_terminal.launches == before + 3
-    ref = gbm_terminal_reference(*args, chol=chol, device=cuda_device)
-    assert out.shape == (M, D) and bool(torch.isfinite(out).all())
+    ref = gbm_terminal_reference(*args, chol=chol, device=device)
+    assert out.shape == (args[-1], len(args[1])) and bool(torch.isfinite(out).all())
     assert float(((out - ref).abs() / ref.abs()).max()) <= K4_RTOL
     assert torch.equal(out, again)
     assert not torch.allclose(out, other)
+    return out
+
+
+# D = 256 and 1024: the correlated z-tile of 64 path pairs does not fit a
+# block's 75 KB of shared memory, and the launcher shrinks it to 32 and 8
+# pairs, whose micro-tiles no longer fill a warp with one asset group. D = 1
+# and 7 are ragged: S_T's rows are not 16-byte aligned and the last group is
+# partial.
+@pytest.mark.parametrize("D", [1, 7, 100, 256, 1024])
+@pytest.mark.parametrize("correlated", [False, True])
+def test_k4_matches_plain_version_and_repeats_bitwise(cuda_device, D, correlated):
+    args, chol = _k4_case(D, correlated, M=2048, N=12)
+    out = _check_k4(cuda_device, args, chol)
     # the values do not depend on tile_m
     assert torch.equal(out, gbm_terminal(*args, chol=chol, tile_m=64, device=cuda_device))
+
+
+# The shapes chip_smoke.py runs: scripts/verify_tpu_kernels.py's M = 131072,
+# N = 50, D = 100, and the basket path's N = 1 (fused_basket_call_mc), where
+# the last correlated block is full and the uncorrelated grid has no tail.
+@pytest.mark.parametrize("N", [1, 50])
+@pytest.mark.parametrize("correlated", [False, True])
+def test_k4_matches_plain_version_at_full_shape(cuda_device, N, correlated):
+    args, chol = _k4_case(100, correlated, M=131072, N=N, seed=7)
+    _check_k4(cuda_device, args, chol)
+
+
+# M not a multiple of the correlated block's 128 paths nor of the uncorrelated
+# block's 512 items: the last block holds fewer pairs.
+@pytest.mark.parametrize("correlated", [False, True])
+def test_k4_matches_plain_version_with_a_partial_last_block(cuda_device, correlated):
+    args, chol = _k4_case(100, correlated, M=2 * 1001, N=3)
+    _check_k4(cuda_device, args, chol, tile_m=2)

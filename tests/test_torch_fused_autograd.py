@@ -78,7 +78,10 @@ def test_cuda_backend_net_u_backpropagates_through_the_kernel_pair():
     """make_fused_net_u(..., "cuda") is differentiable: on CPU tensors its
     gradients are the plain K2's, close to the f32 "torch" backend's."""
     net = MLP([5, 32, 32, 1], "sine", generator=torch.Generator().manual_seed(0), device="cpu")
-    t, X = torch.rand(6, 1), torch.randn(6, 4)
+    # seeded: drawn from the global generator, the inputs depended on which
+    # tests had run before in the same process
+    gen = torch.Generator().manual_seed(1)
+    t, X = torch.rand(6, 1, generator=gen), torch.randn(6, 4, generator=gen)
     grads = {}
     for backend in ("cuda", "torch"):
         u, Z = make_fused_net_u(net.layers, "sine", backend)(net, t, X)

@@ -21,7 +21,7 @@ from dnnpde_tpu_torch.ops.path_kernel import (
     gbm_terminal,
     gbm_terminal_reference,
 )
-from dnnpde_tpu_torch.ops.rollout_kernel import philox4x32_10
+from dnnpde_tpu_torch.ops.rollout_kernel import _TWO_PI_F32, philox4x32_10
 
 M, N, D = 2048, 5, 3
 
@@ -104,6 +104,30 @@ def test_uniform_floor():
     np.testing.assert_array_equal(
         u.numpy(), np.float32([1e-12, 1e-12, 2.0**-24, 1.0 - 2.0**-24]))
     assert np.isfinite(np.sqrt(-2.0 * np.log(u.numpy()))).all()
+
+
+def test_integer_built_uniform_and_angle_for_all_2_24_values():
+    """The kernel builds its uniforms without a conversion instruction
+    (``csrc/gbm_terminal.cu::uniform24``, ``angle24``): for s = bits >> 8,
+    the float x with bits 0x3F000000 | (s & 0x7FFFFF) is 1/2 + low·2⁻²⁴; u1
+    is x minus 0 (bit 31 set) or 1/2, bit for bit the plain version's
+    float(s)·2⁻²⁴, and the angle is one FMA of x with 2π and −π or −2π
+    (−π's bits with the exponent's lowest bit set when bit 31 is clear),
+    equal to fl(2π·(u − 1/2)). Every s < 2²⁴."""
+    s = np.arange(1 << 24, dtype=np.uint32)
+    bits = s << np.uint32(8)
+    x = (np.uint32(0x3F000000) | (s & np.uint32(0x7FFFFF))).view(np.float32)
+    sign = (bits.view(np.int32) >> 31).view(np.uint32)
+    u1 = x - (~sign & np.uint32(0x3F000000)).view(np.float32)
+    want = _uniform24(torch.from_numpy(bits.astype(np.int64))).numpy()
+    want[0] = 0.0  # the floor at 1e-12, which the kernel applies to this value
+    np.testing.assert_array_equal(u1, want)
+    two_pi = np.float32(_TWO_PI_F32)
+    c = ((~s & np.uint32(0x800000)) | np.uint32(0xC0490FDB)).view(np.float32)
+    assert np.float32(-2 * np.float64(np.float32(np.pi))) == np.float32(-two_pi)
+    fma = (x.astype(np.float64) * np.float64(two_pi) + c.astype(np.float64)).astype(np.float32)
+    exact = (np.float64(two_pi) * (want.astype(np.float64) - 0.5)).astype(np.float32)
+    np.testing.assert_array_equal(fma, exact)
 
 
 def test_correlation_applied_once_to_the_sum():

@@ -2,11 +2,11 @@
 through ``save_solution``/``load_solution`` here and ``export_solution`` /
 ``ServedSolution`` there, and both serve (u, Z = ∇ₓu) at the same (t, X).
 
-For FC-sine nets the port serves through K1, whose plain version (taken for
-CPU tensors) rounds the dot operands to bf16 as the TPU does; the JAX
-artifact on the CPU computes in f32. So sine is compared at bf16 tolerance
-and tanh, which the port serves in f32, at f32 tolerance. The last test runs
-the slice end to end on the flagship BSB problem, cut to a small width."""
+Both serve in f32 for every activation (the port through the fused
+``mlp_u_z``, JAX through its exported program), so sine and tanh are
+compared at f32 tolerance, and FC-Sine also at the flagship's full width.
+The last test runs the slice end to end on the flagship BSB problem, cut to
+a small width."""
 
 from __future__ import annotations
 
@@ -76,10 +76,8 @@ def test_sine_u_and_grad_matches_jax_served(tmp_path, batch):
     u, Z = sol.u_and_grad(t, X)
     assert u.shape == (batch, 1) and Z.shape == (batch, D)
     assert isinstance(u, np.ndarray) and u.dtype == np.float32
-    # bf16 dot operands against f32: a few bf16 steps of the largest value
-    for a, r in ((u, u_ref), (Z, Z_ref)):
-        scale = float(np.abs(r).max())
-        np.testing.assert_allclose(a / scale, r / scale, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(u, u_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(Z, Z_ref, rtol=1e-5, atol=1e-6)
 
 
 def test_tanh_u_and_grad_matches_jax_served_in_f32(tmp_path):
@@ -89,6 +87,22 @@ def test_tanh_u_and_grad_matches_jax_served_in_f32(tmp_path):
     u, Z = sol.u_and_grad(t, X)
     np.testing.assert_allclose(u, u_ref, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(Z, Z_ref, rtol=1e-5, atol=1e-6)
+
+
+def test_full_width_sine_matches_jax_served(tmp_path):
+    """FC-Sine [101, 256 x 4, 1] with JAX's initial weights (seed 0) at 4096
+    states X = exp(0.2 xi): f32 against f32, within 1e-5 of max|.| (the bf16
+    K1 this path served before was 7e-3 off)."""
+    dim = 100
+    jax_sol, sol = _served_pair("Sine", tmp_path, layers=[dim + 1, 256, 256, 256, 256, 1])
+    rng = np.random.default_rng(0)
+    t = rng.uniform(size=(4096, 1)).astype(np.float32)
+    X = np.exp(0.2 * rng.normal(size=(4096, dim))).astype(np.float32)
+    u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+    u, Z = sol.u_and_grad(t, X)
+    assert u.shape == (4096, 1) and Z.shape == (4096, dim)
+    for a, r in ((u, u_ref), (Z, Z_ref)):
+        assert np.abs(a - r).max() <= 1e-5 * np.abs(r).max()
 
 
 def test_scalar_time_surface_and_device_path(tmp_path):
@@ -131,10 +145,8 @@ def test_bsb_slice_end_to_end(tmp_path):
     t = np.linspace(0.0, 1.0, 6, dtype=np.float32)[:, None]
     u_ref, Z_ref = jax_sol.u_and_grad(t, X)
     u, Z = sol.u_and_grad(t, X)
-    # bf16 operands: the error follows the O(1) activations and weights of
-    # each sum (about 2^-9 of each term), not u, which sits near 0 here
-    np.testing.assert_allclose(u, u_ref, rtol=0, atol=1e-2)
-    np.testing.assert_allclose(Z, Z_ref, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(u, u_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(Z, Z_ref, rtol=1e-5, atol=1e-6)
 
     net, params = _jax_net("Sine", layers=layers)
     port = from_flax_params(jax.tree.map(np.asarray, params), "Sine", device="cpu")
