@@ -26,9 +26,18 @@ built for CUDA. It
    against the f32 autograd step (``"torch"``): loss and every gradient, on
    BSB-100 and on the basket call;
 5. drives the training path through the user entry point: ``Trainer`` on
-   BSB-100, M = 100, N = 50, ``.train(400, 1e-3, "Adam")``; K1 and K2 must
-   launch exactly 51 x 400 times, the mean logged loss must fall 10x and
-   Y0 must move toward the exact 77.1;
+   BSB-100, M = 100, N = 50, ``.train(400, 1e-3, "Adam")``, where each chunk
+   is a replayed CUDA graph of one iteration, under ``torch.profiler``: the
+   wrappers see only the eager warm-up iteration and the capture, 2 x 51
+   calls each of K1 and K2, and the run's trace must show each of K1's and
+   K2's kernels exactly 51 x 400 times (the warm-up and 399 replays,
+   which no wrapper sees); the mean logged
+   loss must fall 10x and Y0 must move toward the exact 77.1; then a
+   100-iteration captured chunk is held bit for bit against 100 eager
+   ``Trainer.step`` calls (losses, Y0, parameters, Adam state), and a
+   ``TrainingPhases`` run at the reference defaults (2000 iterations at
+   1e-3, then 500 at 1e-5) must bring |Y0 - 77.1049| below its value after
+   the first 400 iterations;
 6. drives the serving path from the trained ``Trainer``: ``save_solution``
    -> ``load_solution`` -> ``u_and_grad`` at batches 1, 100 and 4096 (f32,
    as the JAX package serves) and one ``surface``, then
@@ -37,8 +46,9 @@ built for CUDA. It
    are held to 1e-5 of max|.| of the plain autograd ``make_net_u``, the
    paths against the plain rollout;
 7. drives the basket-call path: ``Trainer`` on BasketCallOption(D=100)
-   for 400 iterations on K1 + K2 (exactly 51 x 400 launches each, the mean
-   logged loss must fall 10x), the CLI's oracle ``basket_call_mc`` (200k
+   for 400 captured iterations on K1 + K2 (traced and counted as on the
+   training path; the mean logged loss must fall 10x), the CLI's
+   oracle ``basket_call_mc`` (200k
    paths) beside ``fused_basket_call_mc`` on K4 (131072 paths; the two
    within 4 combined standard errors), |Y0 - oracle| must halve,
    ``compute_greeks`` at x0 and at 16 states beside ``basket_delta_mc``,
@@ -46,17 +56,20 @@ built for CUDA. It
    against the plain rollout;
 
    on each of the three paths all four launch counters are set to 0 just
-   before it runs and read just after, and the kernels line reports those
-   counts path by path;
-8. times training (iterations/s at M = 100, 512, 2048 on both paths, and
-   the basket run), traces BSB-100 kernel-path iterations at M = 100 with
-   ``torch.profiler`` (wall ms per iteration, device-busy ms, and K1's and
-   K2's share of the device time), times the serving requests and both
+   before it runs and read just after; the kernels line reports each
+   kernel's launches path by path (K1's and K2's on the training and basket
+   paths from the run's trace, the others from the wrappers) beside the
+   wrapper calls;
+8. times training (iterations/s at M = 100, 512, 2048 on both paths,
+   captured chunks and eager ``Trainer.step`` loops, and the basket run),
+   traces BSB-100 kernel-path iterations at M = 100 with ``torch.profiler``,
+   captured and eager (wall ms per iteration, device-busy ms, the device's
+   idle share, and K1's and K2's share of the device time), times the serving requests and both
    oracles (host clock to result), then each kernel, its plain version and
    one PyTorch call that computes the same function (the library
    yardstick, which the port never calls; none computes K4's), and prints
-   one JSON line of kernels (K4's at the basket path's N = 1) and, last,
-   the device line.
+   the script's total seconds, one JSON line of kernels (K4's at the basket
+   path's N = 1) and, last, the device line.
 
 Any failure ends the script with a non-zero exit code and no result line.
 """
@@ -84,6 +97,11 @@ TRAIN_M = 100
 TRAIN_ITERS = 400
 TRAIN_LOG_EVERY = 100
 TRAIN_RATE_MS = (100, 512, 2048)  # bench.py's rows
+RATE_ITERS = {100: 100, 512: 50, 2048: 20}  # per timed window, captured and eager
+CAPTURE_CHECK_ITERS = 100  # the captured chunk held bit for bit against eager steps
+PHASES = ((2000, 1e-3), (500, 1e-5))  # TrainingPhases' reference defaults
+PHASE_BASE_ITERS = 400  # |Y0 - exact| after these iterations is the mark to beat
+PHASE_LOG_EVERY = 100  # Trainer.train's default, which TrainingPhases keeps
 # Kernel vs plain version, relative to max|plain|. Both round every dot
 # operand to bf16, but they sum in other orders, so a value that lies within
 # an f32 rounding of a bf16 tie rounds the other way in one of them and moves
@@ -647,41 +665,91 @@ def check_train_step(net, device, prob=None, label: str = "train step") -> None:
         _require(rel <= STEP_REL_TOL, f"{label} {name}: kernels disagree with the f32 path")
 
 
-def drive_training(device) -> dict:
-    """The training path, through the user entry point. Returns the launch
-    counts of every kernel in this run and the trained Trainer."""
+def _kernel_trainer(device, prob=None, seed: int = 1, M: int = TRAIN_M):
+    """BSB-100 (or ``prob``) at full width on the kernel pair K1 + K2."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig
     from dnnpde_tpu_torch.train import Trainer
 
-    prob = BlackScholesBarenblatt(D=D)
-    exact = float(prob.exact_solution(torch.zeros(1, 1), prob.x0[None])[0, 0])
     # remat=False, as the auto rule picks at M = 100: with remat the backward
     # re-runs each step's forward, and K1 would launch 51 + 49 times a step
-    trainer = Trainer(prob, M=TRAIN_M, N=N_STEPS, layers=LAYERS,
-                      solver_config=SolverConfig(fused_net_u="cuda", remat=False), seed=1,
-                      device=device)
+    return Trainer(prob or BlackScholesBarenblatt(D=D), M=M, N=N_STEPS, layers=LAYERS,
+                   solver_config=SolverConfig(fused_net_u="cuda", remat=False), seed=seed,
+                   device=device)
+
+
+# K1's kernel and K2's two, by the names a device trace gives them
+K1_K2_KERNELS = ("mlp_u_z_fwd_kernel", "mlp_u_z_bwd_rows", "mlp_u_z_bwd_wgrad")
+
+
+def traced_train(trainer, iters: int, log_every: int):
+    """``trainer.train(iters, 1e-3, "Adam")`` under ``torch.profiler``
+    (device activity). Returns the result, the host seconds (the profiler
+    included), and how often the device ran each of K1's and K2's kernels in
+    this run, counted by name in the trace. The wrappers see only a chunk's
+    eager warm-up iteration and its capture, not the replays of the graph;
+    the trace sees every kernel the device ran, graph nodes included (0 on
+    the CPU, which has no device trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = trainer.device.type == "cuda"
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        res = trainer.train(iters, 1e-3, "Adam", log_every=log_every)
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+    seconds = time.perf_counter() - t0
+    runs = dict.fromkeys(K1_K2_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"mlp_u_z_\w+", e.name())
+            if m and m.group(0) in runs:
+                runs[m.group(0)] += 1
+    return res, seconds, runs
+
+
+def drive_training(device) -> dict:
+    """The training path, through the user entry point, traced. Returns the
+    wrapper calls and the kernel runs of this run and the trained Trainer."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+
+    prob = BlackScholesBarenblatt(D=D)
+    exact = float(prob.exact_solution(torch.zeros(1, 1), prob.x0[None])[0, 0])
+    trainer = _kernel_trainer(device)
     y0_init = float(trainer.evaluate_u([[0.0]], prob.x0[None])[0][0, 0])
     zero_counts()
-    t0 = time.perf_counter()
-    res = trainer.train(TRAIN_ITERS, 1e-3, "Adam", log_every=TRAIN_LOG_EVERY)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
+    res, seconds, runs = traced_train(trainer, TRAIN_ITERS, TRAIN_LOG_EVERY)
     counts = read_counts()
-    print(f"training path: {TRAIN_ITERS} iterations in {seconds:.3f} s, "
-          f"launches {json.dumps(counts)}")
+    print(f"training path: {TRAIN_ITERS} iterations in {seconds:.3f} s under the profiler "
+          f"({TRAIN_ITERS / seconds:.3f} it/s), wrapper calls (warm-up + capture) "
+          f"{json.dumps(counts)}, kernels run (trace) {json.dumps(runs)}")
     print(f"training: mean logged loss {json.dumps(res.graph[1].tolist())}; "
           f"Y0 {y0_init:.4f} -> {json.dumps(res.y0_history.tolist())}; exact {exact:.4f}")
-    return {"counts": counts, "trainer": trainer, "graph": res.graph, "y0": res.y0_history,
-            "y0_init": y0_init, "exact": exact, "seconds": seconds}
+    return {"counts": counts, "runs": runs, "trainer": trainer, "graph": res.graph,
+            "y0": res.y0_history, "y0_init": y0_init, "exact": exact, "seconds": seconds}
+
+
+def _check_captured_counts(run: dict, path: str) -> None:
+    """A train() call of TRAIN_ITERS iterations in one chunk shape calls each
+    of the K1 and K2 wrappers once per step of its eager warm-up iteration
+    and of its capture, and the device runs K1's kernel and K2's two kernels
+    once per step of every iteration: the warm-up and TRAIN_ITERS - 1
+    replays."""
+    want = 2 * (N_STEPS + 1)
+    for name in ("mlp_u_z_fwd", "mlp_u_z_bwd"):
+        n = run["counts"][name]
+        _require(n == want, f"the {path} path called the {name} wrapper {n} times, not "
+                 f"{want} (warm-up + capture)")
+    want = TRAIN_ITERS * (N_STEPS + 1)
+    for name, n in run["runs"].items():
+        _require(n == want, f"the {path} path's trace ran {name} {n} times, not {want} "
+                 f"({N_STEPS + 1} in each of {TRAIN_ITERS} iterations)")
 
 
 def check_training(run) -> None:
-    per_step = TRAIN_ITERS * (N_STEPS + 1)
-    for name in ("mlp_u_z_fwd", "mlp_u_z_bwd"):
-        n = run["counts"][name]
-        _require(n == per_step, f"the training path launched {name} {n} times, not {per_step}")
+    """Launch counts (wrapper calls, and the kernels the run's trace shows),
+    the loss's fall and Y0's move."""
+    _check_captured_counts(run, "training")
     losses = run["graph"][1]
     _require(bool(np.isfinite(losses).all()), "non-finite training loss")
     _require(losses[0] >= 10 * losses[-1],
@@ -691,29 +759,89 @@ def check_training(run) -> None:
              "Y0 did not move toward the exact value")
 
 
+def check_captured_chunk(device, iters: int = CAPTURE_CHECK_ITERS) -> None:
+    """One chunk of ``iters`` captured iterations (an eager warm-up, the
+    capture, then replays) against ``iters`` eager ``Trainer.step`` calls
+    from the same state: losses, Y0s, parameters and Adam state, bit for
+    bit."""
+    captured, eager = _kernel_trainer(device, seed=5), _kernel_trainer(device, seed=5)
+    captured.train(iters, 1e-3, "Adam", log_every=iters, verbose=False)
+    chunk = next(iter(captured._chunk_cache.values()))
+    _require(chunk.graph is not None, "the training chunk was not captured")
+    steps = [eager.step(*eager._batch(), "Adam", 1e-3) for _ in range(iters)]
+    same = {
+        "losses": torch.equal(chunk.losses[:iters], torch.stack([s[0] for s in steps])),
+        "y0": torch.equal(chunk.y0s[:iters], torch.stack([s[1] for s in steps])),
+        "params": all(torch.equal(a, b) for a, b in zip(captured._params, eager._params)),
+        "adam_state": all(
+            torch.equal(a, b)
+            for k in ("count", "mu", "nu")
+            for a, b in zip(*(([t._opt_state[k]] if k == "count" else t._opt_state[k])
+                              for t in (captured, eager)))),
+        "generator": torch.equal(captured.generator.get_state(), eager.generator.get_state()),
+    }
+    print(f"captured chunk of {iters} iterations vs {iters} eager steps, bitwise: "
+          + json.dumps(same))
+    _require(all(same.values()), "the captured chunk differs from the eager steps")
+
+
+def drive_phases(device) -> dict:
+    """``TrainingPhases`` at the reference defaults on the kernel path; Y0
+    must end nearer the exact value than after the first 400 iterations."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import TrainingPhases
+
+    prob = BlackScholesBarenblatt(D=D)
+    exact = float(prob.exact_solution(torch.zeros(1, 1), prob.x0[None])[0, 0])
+    trainer = _kernel_trainer(device, seed=7)
+    phases = TrainingPhases(trainer)
+    t0 = time.perf_counter()
+    phases.train_initial_phase(*PHASES[0])
+    phases.fine_tuning_phase(*PHASES[1])
+    seconds = time.perf_counter() - t0
+    y0 = dict(zip(trainer.iteration, trainer.y0_log))
+    # the log at iteration it holds Y0 of iteration it + log_every - 1
+    base = abs(y0[PHASE_BASE_ITERS - PHASE_LOG_EVERY] - exact)
+    final = abs(trainer.y0_log[-1] - exact)
+    out = {"iterations": sum(n for n, _ in PHASES), "seconds": seconds,
+           "it_per_s": sum(n for n, _ in PHASES) / seconds, "exact": exact,
+           f"abs_y0_err_after_{PHASE_BASE_ITERS}": base, "abs_y0_err_final": final,
+           "y0_final": trainer.y0_log[-1], "loss_final": trainer.training_loss[-1]}
+    print("TrainingPhases: " + json.dumps(out))
+    _require(final < base, "TrainingPhases did not bring Y0 nearer the exact value")
+    return out
+
+
 def time_training(device) -> dict:
     """Training iterations per second at bench.py's batch sizes, host clock
-    around whole chunks that end in a device synchronize."""
+    around windows that end in a device synchronize: ``train`` (replays of
+    the captured iteration, after a warm-up window that captures it) and a
+    loop of eager ``Trainer.step`` calls on the trainer's own increments."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig
     from dnnpde_tpu_torch.train import Trainer
 
     out = {}
     for M in TRAIN_RATE_MS:
-        n = 20 if M <= 512 else 10
+        n = RATE_ITERS[M]
         for backend in ("cuda", "torch"):
             tr = Trainer(BlackScholesBarenblatt(D=D), M=M, N=N_STEPS, layers=LAYERS, seed=2,
                          solver_config=SolverConfig(fused_net_u=backend, remat=False))
-            tr.train(2, 1e-3, log_every=2, verbose=False)  # warm-up
+            tr.train(n, 1e-3, log_every=n, verbose=False)  # warm-up and capture
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             tr.train(n, 1e-3, log_every=n, verbose=False)
             torch.cuda.synchronize(device)
-            out[f"{backend}_M{M}_it_per_s"] = n / (time.perf_counter() - t0)
+            out[f"{backend}_M{M}_captured_it_per_s"] = n / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                tr.step(*tr._batch(), "Adam", 1e-3)
+            torch.cuda.synchronize(device)
+            out[f"{backend}_M{M}_eager_it_per_s"] = n / (time.perf_counter() - t0)
     return out
 
 
-TRACE_ITERS = 5  # kernel-path iterations in the profiled window
+TRACE_ITERS = 20  # kernel-path iterations in the profiled window
 
 
 def _union_ms(spans) -> float:
@@ -726,12 +854,15 @@ def _union_ms(spans) -> float:
     return total / 1e3
 
 
-def trace_iteration(device, iters: int = TRACE_ITERS) -> dict:
+def trace_iteration(device, iters: int = TRACE_ITERS, eager: bool = False) -> dict:
     """Where the time of a BSB-100 kernel-path training iteration at M = 100
     goes: host-clock ms per iteration without and with ``torch.profiler``,
     and from the profiler's device trace the busy ms per iteration (the
-    union of kernel, copy and set intervals), the kernels' ms by K1, K2 and
-    the rest, and their launches. K2 counts both of its kernels."""
+    union of kernel, copy and set intervals), the device's idle share, the
+    kernels' ms by K1, K2 and the rest, and their launches by kernel name
+    per iteration (K2 is two kernels). The window is one ``train`` chunk of
+    replays of the captured iteration, or with ``eager`` a loop of
+    ``Trainer.step`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
@@ -744,11 +875,15 @@ def trace_iteration(device, iters: int = TRACE_ITERS) -> dict:
     def window() -> float:
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        tr.train(iters, 1e-3, log_every=iters, verbose=False)
+        if eager:
+            for _ in range(iters):
+                tr.step(*tr._batch(), "Adam", 1e-3)
+        else:
+            tr.train(iters, 1e-3, log_every=iters, verbose=False)
         torch.cuda.synchronize(device)
         return 1e3 * (time.perf_counter() - t0) / iters
 
-    window()  # warm-up
+    window()  # warm-up (and capture)
     wall = window()
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -770,7 +905,7 @@ def trace_iteration(device, iters: int = TRACE_ITERS) -> dict:
 
     ms = {"k1": 0.0, "k2": 0.0, "other": 0.0}
     launches = {"k1": 0, "k2": 0, "other": 0}
-    by_kernel = {}  # K1's and K2's kernels by name, ms per iteration
+    by_kernel, count_by_kernel = {}, {}  # K1's and K2's kernels by name, per iteration
     for e in device_events:
         if e["cat"] == "kernel":
             k = kind(e["name"])
@@ -779,11 +914,16 @@ def trace_iteration(device, iters: int = TRACE_ITERS) -> dict:
             if k != "other":
                 name = re.search(r"mlp_u_z_\w+|sum_partials\w*", e["name"]).group(0)
                 by_kernel[name] = by_kernel.get(name, 0.0) + e["dur"] / 1e3 / iters
+                count_by_kernel[name] = count_by_kernel.get(name, 0) + 1
     busy = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in device_events) / iters
-    return {"M": TRAIN_M, "iterations": iters, "wall_ms": wall, "traced_wall_ms": traced,
+    # "train": replays of the captured iteration in this tree, eager in trees
+    # before the CUDA-graph chunk (scripts/time_tree.py traces those too)
+    return {"window": "step loop" if eager else "train", "M": TRAIN_M,
+            "iterations": iters, "wall_ms": wall, "traced_wall_ms": traced,
             "device_busy_ms": busy, "device_idle_share": 1.0 - busy / traced,
             "kernel_ms": ms, "k1_share": ms["k1"] / busy, "k2_share": ms["k2"] / busy,
-            "kernel_launches": launches, "k1_k2_kernels_ms": by_kernel}
+            "kernel_launches": launches, "k1_k2_kernels_ms": by_kernel,
+            "k1_k2_launches_per_iteration": {k: v / iters for k, v in count_by_kernel.items()}}
 
 
 # ---- the serving path -------------------------------------------------------
@@ -897,22 +1037,14 @@ def drive_basket(device) -> dict:
     from dnnpde_tpu_torch.ops.path_kernel import fused_basket_call_mc
     from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast
     from dnnpde_tpu_torch.pde import BasketCallOption
-    from dnnpde_tpu_torch.solver import SolverConfig
-    from dnnpde_tpu_torch.train import Trainer
 
     prob = BasketCallOption(D=D)
     x0 = prob.x0.to(device)
     oracle_args = (x0, prob.strike, prob.T, prob.r, prob.sigma_bar)
-    trainer = Trainer(prob, M=TRAIN_M, N=N_STEPS, layers=LAYERS,
-                      solver_config=SolverConfig(fused_net_u="cuda", remat=False), seed=1,
-                      device=device)
+    trainer = _kernel_trainer(device, prob)
     y0_init = float(trainer.evaluate_u([[0.0]], prob.x0[None])[0][0, 0])
     zero_counts()
-    t0 = time.perf_counter()
-    res = trainer.train(TRAIN_ITERS, 1e-3, "Adam", log_every=TRAIN_LOG_EVERY)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
+    res, seconds, runs = traced_train(trainer, TRAIN_ITERS, TRAIN_LOG_EVERY)
     oracle = basket_call_mc(torch.Generator(device=device).manual_seed(0), *oracle_args,
                             num_paths=BASKET_ORACLE_PATHS, payoff="mean")
     fused = fused_basket_call_mc(0, *oracle_args, payoff="mean")
@@ -929,8 +1061,9 @@ def drive_basket(device) -> dict:
     counts = read_counts()
     oracle = tuple(float(v) for v in oracle)
     fused = tuple(float(v) for v in fused)
-    print(f"basket path: {TRAIN_ITERS} iterations in {seconds:.3f} s "
-          f"({TRAIN_ITERS / seconds:.3f} it/s), launches {json.dumps(counts)}")
+    print(f"basket path: {TRAIN_ITERS} iterations in {seconds:.3f} s under the profiler "
+          f"({TRAIN_ITERS / seconds:.3f} it/s), wrapper calls {json.dumps(counts)} (K1 and "
+          f"K2: warm-up + capture), K1 and K2 kernels run (trace) {json.dumps(runs)}")
     print(f"basket: mean logged loss {json.dumps(res.graph[1].tolist())}; Y0 {y0_init:.6f} -> "
           f"{json.dumps(res.y0_history.tolist())}; oracle basket_call_mc "
           f"{oracle[0]:.6f} +- {oracle[1]:.6f}, fused_basket_call_mc (K4) "
@@ -938,18 +1071,15 @@ def drive_basket(device) -> dict:
     print(f"basket greeks at x0: u {greeks_x0[0][0, 0]:.6f}, sum delta "
           f"{greeks_x0[1].sum():.6f} (basket_delta_mc {float(delta_mc.sum()):.6f}), "
           f"sum gamma {greeks_x0[2].sum():.6f}")
-    return {"counts": counts, "trainer": trainer, "graph": res.graph, "y0": res.y0_history,
-            "y0_init": y0_init, "oracle": oracle, "fused": fused, "greeks_x0": greeks_x0,
+    return {"counts": counts, "runs": runs, "trainer": trainer, "graph": res.graph,
+            "y0": res.y0_history, "y0_init": y0_init, "oracle": oracle, "fused": fused, "greeks_x0": greeks_x0,
             "greeks_b": greeks_b, "delta_mc": delta_mc, "Y": Y, "seconds": seconds}
 
 
 def check_basket(run, device) -> None:
     from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths_reference
 
-    per_step = TRAIN_ITERS * (N_STEPS + 1)
-    for name in ("mlp_u_z_fwd", "mlp_u_z_bwd"):
-        n = run["counts"][name]
-        _require(n == per_step, f"the basket path launched {name} {n} times, not {per_step}")
+    _check_captured_counts(run, "basket")
     for name in ("gbm_terminal", "rollout_paths"):
         _require(run["counts"][name] > 0, f"the basket path never launched {name}")
     losses = run["graph"][1]
@@ -1005,7 +1135,7 @@ def time_basket(run, device) -> dict:
     args = (prob.x0.to(device), prob.strike, prob.T, prob.r, prob.sigma_bar)
     gen = torch.Generator(device=device).manual_seed(0)
     return {
-        "train_it_per_s": TRAIN_ITERS / run["seconds"],
+        "train_it_per_s_under_profiler": TRAIN_ITERS / run["seconds"],
         f"basket_call_mc_{BASKET_ORACLE_PATHS}_ms": host_ms(
             lambda: basket_call_mc(gen, *args, num_paths=BASKET_ORACLE_PATHS), 5),
         f"fused_basket_call_mc_{K4_M}_ms": host_ms(lambda: fused_basket_call_mc(0, *args), 5),
@@ -1019,6 +1149,7 @@ def main() -> int:
         return 1
     from dnnpde_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1051,13 +1182,17 @@ def main() -> int:
 
     train = drive_training(device)
     check_training(train)
+    check_captured_chunk(device)
+    drive_phases(device)
     run = drive_serving(train["trainer"], device)
     check_serving(run, device)
     basket = drive_basket(device)
     check_basket(basket, device)
 
     print("training rate: " + json.dumps(time_training(device)))
-    print("training iteration (traced): " + json.dumps(trace_iteration(device)))
+    print("training iteration (traced, captured chunk): " + json.dumps(trace_iteration(device)))
+    print("training iteration (traced, eager steps): "
+          + json.dumps(trace_iteration(device, eager=True)))
     print("serving latency: " + json.dumps(time_serving(run)))
     print("basket path: " + json.dumps(time_basket(basket, device)))
     k1.update(time_k1(Ws, bs, device))
@@ -1067,21 +1202,34 @@ def main() -> int:
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
     k4.update(time_k4(device)["basket"])  # the basket path's shape
 
-    paths = {"training": train["counts"], "serving": run["counts"], "basket": basket["counts"]}
+    paths = {"training": train, "serving": run, "basket": basket}
 
-    def launches(name):
-        by_path = {p: c[name] for p, c in paths.items()}
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+    def launches(name, traced_names=()):
+        """The kernel's launches on each path: on the training and basket
+        paths K1's and K2's from the run's trace (K2: its row-chain kernel,
+        which runs once with its weight-gradient kernel in every call),
+        otherwise the wrapper's count, which sees every launch of an eager
+        path; beside them the wrapper calls on every path."""
+        calls = {p: r["counts"][name] for p, r in paths.items()}
+        by_path = {p: r["runs"][traced_names[0]] if traced_names and "runs" in r else calls[p]
+                   for p, r in paths.items()}
+        out = {"launches": sum(by_path.values()), "launches_by_path": by_path,
+               "wrapper_calls_by_path": calls}
+        if traced_names:
+            out["traced_runs_by_kernel"] = {
+                p: {k: r["runs"][k] for k in traced_names} for p, r in paths.items()
+                if "runs" in r}
+        return out
 
     kernels = [
         {"name": "mlp_u_z_fwd", "route": "cuda",
          "source": "dnnpde_tpu_torch/csrc/mlp_u_z_fwd.cu",
          "replaces": "dnnpde_tpu/ops/mlp_kernel.py:188",
-         **launches("mlp_u_z_fwd"), **k1},
+         **launches("mlp_u_z_fwd", K1_K2_KERNELS[:1]), **k1},
         {"name": "mlp_u_z_bwd", "route": "cuda",
          "source": "dnnpde_tpu_torch/csrc/mlp_u_z_bwd.cu",
          "replaces": "dnnpde_tpu/ops/mlp_kernel.py:221",
-         **launches("mlp_u_z_bwd"), **k2},
+         **launches("mlp_u_z_bwd", K1_K2_KERNELS[1:]), **k2},
         {"name": "rollout_paths", "route": "cuda",
          "source": "dnnpde_tpu_torch/csrc/rollout.cu",
          "replaces": "dnnpde_tpu/ops/rollout_kernel.py:182",
@@ -1091,6 +1239,7 @@ def main() -> int:
          "replaces": "dnnpde_tpu/ops/path_kernel.py:180",
          **launches("gbm_terminal"), **k4},
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

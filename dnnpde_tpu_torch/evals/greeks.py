@@ -12,9 +12,6 @@ import numpy as np
 import torch
 from torch.func import grad, jacfwd, vmap
 
-_NO_EMA = "use_ema=True needs the EMA shadow weights, which are not ported yet (ROADMAP.md Queue 1, item 1)"
-
-
 def _f32(trainer, a) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32).to(trainer.device)
 
@@ -25,10 +22,11 @@ def compute_greeks(
     """(u, delta, gamma_diag) at batched (t, X).
 
     u: (M, 1); delta = ∇ₓu: (M, D); gamma_diag = diag(∂²u/∂X²): (M, D).
+    ``use_ema=True`` evaluates the Polyak/EMA shadow (as
+    ``Trainer.predict`` does); the trainer needs ``ema_decay``.
     """
-    if use_ema:
-        raise NotImplementedError(_NO_EMA)
-    net, problem = trainer.params, trainer.problem
+    net = trainer.ema_params if use_ema else trainer.params
+    problem = trainer.problem
     t = _f32(trainer, t).reshape(-1, 1)
     X = _f32(trainer, X).reshape(-1, problem.dim)
 

@@ -11,9 +11,6 @@ import dataclasses
 import numpy as np
 import torch
 
-_NO_EMA = "use_ema=True needs the EMA shadow weights, which are not ported yet (ROADMAP.md Queue 1, item 1)"
-
-
 def _sample_seed(seed: int, i: int) -> int:
     """The seed of sample i: the first 63 bits of
     ``np.random.SeedSequence([seed, i])``'s first uint64 word."""
@@ -35,13 +32,12 @@ class PredictionGenerator:
     Seeding rule (in place of JAX's ``fold_in(PRNGKey(seed), i)``): sample i
     draws its minibatch from ``torch.Generator(device=trainer.device)``
     seeded with :func:`_sample_seed` (seed, i), so each sample depends only on
-    (``seed``, i).
+    (``seed``, i). ``use_ema=True`` runs the Polyak/EMA shadow
+    (``Trainer(ema_decay=...)``) instead of the raw last iterate.
     """
 
     def __init__(self, trainer, Xi=None, num_samples: int = 16, seed: int = 37,
                  use_ema: bool = False):
-        if use_ema:
-            raise NotImplementedError(_NO_EMA)
         self.trainer = trainer
         self.use_ema = use_ema
         Xi = trainer.problem.x0 if Xi is None else Xi
@@ -55,7 +51,7 @@ class PredictionGenerator:
         for i in range(self.num_samples):
             gen = torch.Generator(device=self.trainer.device).manual_seed(_sample_seed(self.seed, i))
             t, W = self.trainer.fetch_minibatch(generator=gen)
-            X_pred, Y_pred = self.trainer.predict(self.Xi, t, W)
+            X_pred, Y_pred = self.trainer.predict(self.Xi, t, W, use_ema=self.use_ema)
             ts.append(t.cpu().numpy())
             Xs.append(X_pred)
             Ys.append(Y_pred)

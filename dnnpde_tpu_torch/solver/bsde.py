@@ -65,8 +65,8 @@ class RolloutResult(NamedTuple):
     """Mirrors the reference loss_function returns: (loss, X, Y, Y0)."""
 
     loss: Tensor  # scalar
-    X: Tensor  # (M, N+1, D)
-    Y: Tensor  # (M, N+1, 1)
+    X: Optional[Tensor]  # (M, N+1, D); None when the loss was asked for no paths
+    Y: Optional[Tensor]  # (M, N+1, 1); likewise
     Y0: Tensor  # scalar — Y[0, 0, 0]
 
 
@@ -154,7 +154,7 @@ def make_loss_fn(
     net: torch.nn.Module,
     config: SolverConfig = SolverConfig(),
 ) -> Callable:
-    """Build loss(net, ts, dWs, X0) → RolloutResult.
+    """Build loss(net, ts, dWs, X0, paths=True) → RolloutResult.
 
     ``net`` here gives the structure (``layers``, ``activation``); the
     returned function evaluates the module it is given (the JAX loss takes
@@ -162,6 +162,10 @@ def make_loss_fn(
       ts:  (N+1, M, 1) time-major time grid (ts[0] is the start time).
       dWs: (N, M, D) time-major Brownian increments.
       X0:  (M, D) initial states.
+      paths: stack the rollout's X and Y into the result. Training reads
+        only the loss and Y0 (the JAX Trainer leaves the stacking to XLA's
+        dead-code elimination), so it passes False and gets X = Y = None;
+        the loss and its gradients are the same either way.
     """
     _check_config(problem, config)
     bind = _bind_net_u(problem, net, config)
@@ -186,28 +190,35 @@ def make_loss_fn(
         X1, Y1_tilde = em_step(t0, X0, Y0, Z0, t1, dW)
         return X1, Y1_tilde, residual, Y0
 
-    def loss_fn(module: torch.nn.Module, ts: Tensor, dWs: Tensor, X0: Tensor) -> RolloutResult:
+    def loss_fn(module: torch.nn.Module, ts: Tensor, dWs: Tensor, X0: Tensor,
+                paths: bool = True) -> RolloutResult:
         net_u = bind(module)
         body = functools.partial(step, net_u)
         if config.remat:
-            body = functools.partial(checkpoint, body, use_reentrant=False)
+            # the step draws no random numbers, so there is no RNG state to
+            # keep for the recompute (reading it is not allowed while a CUDA
+            # graph captures the training iteration)
+            body = functools.partial(checkpoint, body, use_reentrant=False,
+                                     preserve_rng_state=False)
         # step 0, peeled: Y0 comes from this evaluation
         Y0, Z0 = net_u(ts[0], X0)
         X, Ytilde = em_step(ts[0], X0, Y0, Z0, ts[1], dWs[0])
         Xs, Ys, residuals = [X0, X], [Y0], []
         for n in range(1, dWs.shape[0]):
             X, Ytilde, residual, Yn = body(ts[n], X, Ytilde, ts[n + 1], dWs[n])
-            Xs.append(X)
-            Ys.append(Yn)
+            if paths:
+                Xs.append(X)
+                Ys.append(Yn)
             residuals.append(residual)
         # the final evaluation closes the rollout: last residual + terminal penalties
         YN, ZN = net_u(ts[-1], X)
-        Ys.append(YN)
         loss = torch.sum((YN - Ytilde) ** 2)
         if residuals:
             loss = torch.stack(residuals).sum() + loss
         loss = loss + _terminal_penalty(problem, X, YN, ZN)
-        Y = torch.stack(Ys, dim=1)
+        if not paths:
+            return RolloutResult(loss, None, None, Y0[0, 0])
+        Y = torch.stack(Ys + [YN], dim=1)
         return RolloutResult(loss, torch.stack(Xs, dim=1), Y, Y[0, 0, 0])
 
     return loss_fn

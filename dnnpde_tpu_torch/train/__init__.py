@@ -1,6 +1,8 @@
-"""Training: optimizer factory and trainer."""
+"""Training: optimizer factory, schedules, checkpoints and trainer."""
 
+from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from dnnpde_tpu_torch.train.optimizers import OPTIMIZER_NAMES, build_optimizer, is_lbfgs
+from dnnpde_tpu_torch.train.schedules import PhaseSpec, TimeStepRefinement, two_phase
 from dnnpde_tpu_torch.train.trainer import (
     Trainer,
     TrainingPhases,
@@ -13,6 +15,11 @@ __all__ = [
     "OPTIMIZER_NAMES",
     "build_optimizer",
     "is_lbfgs",
+    "PhaseSpec",
+    "TimeStepRefinement",
+    "two_phase",
+    "save_checkpoint",
+    "restore_checkpoint",
     "Trainer",
     "TrainingPhases",
     "TrainResult",

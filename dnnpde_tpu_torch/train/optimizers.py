@@ -11,7 +11,12 @@ explicit update on a list of tensors with optax's constants:
 - clipping: ``clip_by_global_norm(1.0)`` first, for every optimizer: scale
   by clip / norm when the global norm is at least clip;
 - the learning rate is a runtime value kept in the state, as
-  ``optax.inject_hyperparams`` keeps it;
+  ``optax.inject_hyperparams`` keeps it. A schedule is a callable that
+  takes the state's ``count`` (a 0-d int32 tensor on the parameters'
+  device: the number of updates taken so far) and returns the rate as a
+  tensor; it is evaluated on the device at every update, so it runs inside
+  a captured training iteration, as optax evaluates it inside the jitted
+  chunk;
 - ASGD maps to plain SGD (torch's ASGD takes SGD steps and only keeps a
   side average);
 - LBFGS (optax's zoom-linesearch LBFGS) is not ported yet.
@@ -19,11 +24,12 @@ explicit update on a list of tensors with optax's constants:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
 Tensor = torch.Tensor
+LearningRate = Union[float, Callable[[Tensor], Tensor]]
 
 OPTIMIZER_NAMES = (
     "Adam",
@@ -65,16 +71,23 @@ class Optimizer:
     state, params)`` and ``params + updates``. Nothing reads a value back to
     the host, so a loop of steps never waits for the device."""
 
-    def __init__(self, name: str, learning_rate: float, clip_norm: Optional[float]):
+    def __init__(self, name: str, learning_rate: LearningRate, clip_norm: Optional[float]):
         self.name = name
-        self.learning_rate = float(learning_rate)
+        self.schedule = learning_rate if callable(learning_rate) else None
+        self.learning_rate = learning_rate if self.schedule else float(learning_rate)
         self.clip_norm = clip_norm
+
+    def _lr(self, count: Tensor) -> Tensor:
+        """The schedule's rate at ``count``, as an f32 tensor beside it."""
+        return torch.as_tensor(self.schedule(count), dtype=torch.float32, device=count.device)
 
     def init(self, params: Sequence[Tensor]) -> dict:
         dev = params[0].device
+        count = torch.zeros((), dtype=torch.int32, device=dev)
         state = {
-            "count": torch.zeros((), dtype=torch.int32, device=dev),
-            "lr": torch.tensor(self.learning_rate, dtype=torch.float32, device=dev),
+            "count": count,
+            "lr": (self._lr(count) if self.schedule else
+                   torch.tensor(self.learning_rate, dtype=torch.float32, device=dev)),
         }
         for slot, value in _SLOTS[self.name].items():
             state[slot] = [torch.full_like(p, value) for p in params]
@@ -87,8 +100,9 @@ class Optimizer:
             norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
             keep = norm < self.clip_norm
             g = [torch.where(keep, x, (x / norm) * self.clip_norm) for x in g]
+        lr = self._lr(state["count"]) if self.schedule else state["lr"]
         count = state["count"] + 1
-        new = {"count": count, "lr": state["lr"]}
+        new = {"count": count, "lr": lr}
         name = self.name
         if name in ("adam", "adamw"):
             new["mu"] = [(1 - B1) * x + B1 * m for x, m in zip(g, state["mu"])]
@@ -117,28 +131,25 @@ class Optimizer:
             new["nu"] = [torch.maximum(x.abs() + EPS, B2 * v) for x, v in zip(g, state["nu"])]
             c1 = 1 - B1**count
             u = [(m / c1) / v for m, v in zip(new["mu"], new["nu"])]
-        step = -state["lr"]
+        step = -lr
         return [x * step for x in u], new
 
 
 def build_optimizer(
-    optimizer_type: str, learning_rate: float, clip_norm: Optional[float] = 1.0
+    optimizer_type: str, learning_rate: LearningRate, clip_norm: Optional[float] = 1.0
 ) -> Optimizer:
     """The optimizer named by the reference's ``optimizer_type`` string, with
-    global-norm clipping at ``clip_norm`` (None: no clipping)."""
+    global-norm clipping at ``clip_norm`` (None: no clipping).
+    ``learning_rate`` is a number or a schedule ``count -> rate``."""
     key = optimizer_type.lower()
     if key == "lbfgs":
         raise NotImplementedError(
             "LBFGS (optax's zoom-linesearch LBFGS) is not ported yet "
-            "(ROADMAP.md Queue 1, item 1: optimizers and trainer core)"
+            "(ROADMAP.md Queue 1: LBFGS and Trainer.polish)"
         )
     if key not in _SLOTS:
         raise ValueError(
             f"Optimizer type {optimizer_type!r} is not recognized; "
             f"expected one of {OPTIMIZER_NAMES}"
-        )
-    if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet (ROADMAP.md Queue 1, item 1)"
         )
     return Optimizer(key, learning_rate, clip_norm)

@@ -1,25 +1,41 @@
 """Trainer: the user-facing deep-BSDE training loop of the PyTorch port, the
 counterpart of ``dnnpde_tpu/train/trainer.py``.
 
-- The training loop runs in chunks of ``log_every`` iterations. Inside a
-  chunk nothing is read back to the host: increments are drawn on the
-  device from a ``torch.Generator``, each step's loss and Y0 go into device
-  tensors, and the optimizer (``train/optimizers.py``) and the NaN guard use
-  ``torch.where``. The chunk's values are read once, at its log point.
+- The training loop runs in chunks of ``log_every`` iterations. One
+  iteration (increments drawn on the device from the trainer's
+  ``torch.Generator``, the loss, its gradients, clipping, the optimizer
+  update, the NaN guard, the EMA update, the best-state update, and this
+  iteration's loss and Y0 written into the chunk's device buffers at a
+  device-side index) runs on tensors that keep their addresses from one
+  iteration to the next (:class:`_Chunk`). On a CUDA device it is captured
+  once into a CUDA graph and every later iteration is one replay of it: the
+  counterpart of the JAX Trainer's jitted ``lax.scan`` chunk, which makes a
+  chunk one dispatch. On the CPU the same iteration runs eagerly.
+- Nothing is read back inside a chunk. A chunk's values are copied to the
+  host once, and read one chunk later, while the next chunk runs.
+- Everything the captured iteration binds (parameters, optimizer state, EMA
+  shadow, the chunk's buffers) is updated in place: ``reset``,
+  ``warm_start_from``, ``load_model``, a float learning-rate change and the
+  collapse rollback copy into those tensors, and a change of optimizer or a
+  schedule drops the captured iterations, as the JAX Trainer drops its
+  compiled chunks.
 - ``predict`` does not mutate the batch size.
-- Optional NaN guard: skip the whole update, optimizer state included, when
-  the loss is non-finite.
+- Optional NaN guard: skip the whole update, optimizer state and EMA
+  included, when the loss is non-finite.
 
-What the JAX Trainer has beyond this (time-step refinement, sampled X0,
-EMA, the local objective, best-state tracking, collapse restarts, meshes,
-metrics files, LBFGS polish, checkpoints, ``TrainingPhases``) is not ported
-yet and raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 1).
+Not ported yet, and raising ``NotImplementedError``: sampled X0
+(``x0_sampler``), the local objective, ``path_weight_fn``, Z-matching,
+meshes, LBFGS and ``polish`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import hashlib
+import json
 import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -37,11 +53,13 @@ from dnnpde_tpu_torch.solver.bsde import (
     make_net_u,
     make_path_loss_fn,
 )
-from dnnpde_tpu_torch.train.optimizers import build_optimizer
+from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dnnpde_tpu_torch.train.optimizers import LearningRate, build_optimizer
+from dnnpde_tpu_torch.train.schedules import TimeStepRefinement
 
 Tensor = torch.Tensor
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, item 1: optimizers and trainer core)"
+_LATER = "is not ported yet (ROADMAP.md Queue 1)"
 
 
 @dataclasses.dataclass
@@ -50,7 +68,7 @@ class TrainResult:
 
     graph: np.ndarray  # (2, num_logs): iterations; mean losses
     min_loss: float
-    min_loss_state: Optional[tuple[np.ndarray, np.ndarray]]  # best (X, Y); not tracked yet
+    min_loss_state: Optional[tuple[np.ndarray, np.ndarray]]  # best (X, Y) with track_best
     y0_history: np.ndarray  # Y0 at each log point
     wall_time: float
 
@@ -67,6 +85,51 @@ def scaled_lr(width: int, base_lr: float = 1e-3, base_width: int = 256) -> float
     return base_lr * base_width / float(width)
 
 
+def _assign(dst: dict, src: dict, ok: Optional[Tensor] = None) -> None:
+    """Copy optimizer state ``src`` into the tensors of ``dst`` (where
+    ``ok``, when given)."""
+    for key, value in src.items():
+        pairs = zip(dst[key], value) if isinstance(value, list) else [(dst[key], value)]
+        for d, s in pairs:
+            d.copy_(s if ok is None else torch.where(ok, s, d))
+
+
+def _clone_state(state: dict) -> dict:
+    return {k: [x.clone() for x in v] if isinstance(v, list) else v.clone()
+            for k, v in state.items()}
+
+
+class _Chunk:
+    """The training iteration of one (N, M, optimizer, features) on buffers
+    that keep their addresses: the counterpart of the JAX Trainer's jitted
+    chunk (``_make_chunk``).
+
+    The chunk owns the time grid of its N, the per-iteration loss and Y0
+    buffers (``capacity`` iterations, written at the device-side index
+    ``idx``) and, with ``track_best``, the chunk's best loss and its (X, Y)
+    paths. On a CUDA device the first iteration it runs is eager, as the
+    warm-up that capture needs (autograd, cuBLAS workspaces and the kernels'
+    first-use load run outside the capture), the second is captured into
+    ``graph`` and replayed at once, and every later iteration is a replay;
+    the warm-up is an iteration of the run, not an extra one."""
+
+    def __init__(self, trainer: "Trainer", N: int, capacity: int):
+        dev, dt, M = trainer.device, trainer.dtype, trainer.M
+        self.N = N
+        self.capacity = capacity
+        self.ts = time_grid(M, N, trainer.problem.T, dt, dev).transpose(0, 1)
+        self.losses = torch.zeros(capacity, dtype=dt, device=dev)
+        self.y0s = torch.zeros(capacity, dtype=dt, device=dev)
+        self.idx = torch.zeros(1, dtype=torch.long, device=dev)
+        if trainer.track_best:
+            D = trainer.problem.dim
+            self.best_loss = torch.full((), float("inf"), dtype=dt, device=dev)
+            self.best_X = torch.zeros((M, N + 1, D), dtype=dt, device=dev)
+            self.best_Y = torch.zeros((M, N + 1, 1), dtype=dt, device=dev)
+        self.warm = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+
 class Trainer:
     """Deep-BSDE trainer for one :class:`PDEProblem`.
 
@@ -76,19 +139,35 @@ class Trainer:
       N: number of time steps.
       layers: net widths incl. input/output; default ``[D+1, 256×4, 1]``.
       mode / activation: network selection strings ("FC" only so far).
+      Mm: refinement base; if set, the reference's coarse-to-fine N schedule
+        (:class:`TimeStepRefinement`) is applied, one captured iteration per
+        distinct N.
       correlation_type: "no_correlation" | "random_correlation" |
         "restricted_random_correlation" — the Cholesky factor that
         correlates the increments.
       correlation_seed: NumPy seed of the random correlation matrix.
       solver_config: :class:`SolverConfig`; None picks ``remat`` by the
         JAX package's rule (remat when the activation stash of a step's
-        backward would pass 1 GB) and otherwise the defaults, i.e. (u, Z)
-        by autograd of the net. ``SolverConfig(fused_net_u="cuda")`` trains
-        on the kernel pair K1 + K2.
+        backward would pass 1 GB in f32, 6 GB under bf16 hidden compute)
+        and otherwise the defaults, i.e. (u, Z) by autograd of the net.
+        ``SolverConfig(fused_net_u="cuda")`` trains on the kernel pair
+        K1 + K2.
       seed: draws the initial weights (on the CPU, so they do not depend on
         the device) and seeds the increments' generator on the device.
       nan_guard: skip updates on non-finite loss.
+      track_best: carry the min-loss (X, Y) paths through the chunk (the
+        reference's ``min_loss_state``); off by default, since it makes the
+        loss stack the paths at every step.
+      metrics_file: append one JSON row per log point to this path.
+      net_kwargs: passed to the network factory (``gain``,
+        ``compute_dtype``).
       antithetic: draw increments in (dW, −dW) pairs; needs an even M.
+      ema_decay: keep a Polyak/EMA shadow of the parameters, updated inside
+        the chunk (``ema_params``).
+      collapse_restart: snapshot (params, optimizer state, EMA) at each
+        healthy log point and, when a chunk ends with Y0 pinned at the
+        problem's clamp (or non-finite), roll back, re-seed the increments
+        and retry, up to ``collapse_max_restarts`` times.
       device: None = the first CUDA card (raises without one); pass "cpu"
         to train on the CPU.
     """
@@ -114,6 +193,8 @@ class Trainer:
         antithetic: bool = False,
         ema_decay: Optional[float] = None,
         collapse_restart: bool = False,
+        collapse_tol: float = 1e-5,
+        collapse_max_restarts: int = 3,
         x0_sampler=None,
         objective: str = "global",
         path_weight_fn=None,
@@ -122,11 +203,8 @@ class Trainer:
         device=None,
     ):
         later = {
-            "Mm": Mm is not None, "mesh": mesh is not None, "track_best": track_best,
-            "metrics_file": metrics_file is not None, "net_kwargs": bool(net_kwargs),
-            "ema_decay": ema_decay is not None, "collapse_restart": collapse_restart,
-            "x0_sampler": x0_sampler is not None, "objective": objective != "global",
-            "path_weight_fn": path_weight_fn is not None,
+            "mesh": mesh is not None, "x0_sampler": x0_sampler is not None,
+            "objective": objective != "global", "path_weight_fn": path_weight_fn is not None,
             "z_match_weight": bool(z_match_weight) or z_match_mask is not None,
         }
         for name, used in later.items():
@@ -136,29 +214,47 @@ class Trainer:
         self.problem = problem
         self.M = int(M)
         self.N = int(N)
+        n_samples = getattr(problem, "N_samples", None)
+        if n_samples is not None and int(n_samples) != self.N:
+            raise ValueError(
+                f"{problem.name}: problem.N_samples={n_samples} must equal the Trainer's "
+                f"N={self.N} (the per-step accumulation weight in post_step depends on "
+                f"it — construct the problem with N_samples={self.N})"
+            )
         self.dtype = torch.float32
         self.nan_guard = nan_guard
         if antithetic and self.M % 2:
             raise ValueError(f"antithetic sampling requires even M, got {M}")
         self.antithetic = antithetic
+        if ema_decay is not None and not (0.0 < ema_decay < 1.0):
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        self.ema_decay = ema_decay
+        self.collapse_restart = collapse_restart
+        self.collapse_tol = collapse_tol
+        self.collapse_max_restarts = collapse_max_restarts
+        self.collapse_restarts: list[int] = []  # iteration index per restart
+        self.track_best = track_best
+        self.metrics_file = metrics_file
         self.mode = mode
         self.activation = activation
         self.layers = list(layers) if layers is not None else default_layers(problem.dim)
         if self.layers[0] != problem.dim + 1:
             raise ValueError(f"layers[0] must be dim+1={problem.dim + 1}, got {self.layers[0]}")
+        self.net_kwargs = dict(net_kwargs or {})
         if solver_config is None:
             # Auto remat, the JAX package's rule: rematerialize once the
-            # no-remat activation stash (N x M x width x 2 len(layers) f32)
-            # passes 1 GB.
-            act_bytes = self.N * self.M * max(self.layers) * (2 * len(self.layers)) * 4
-            solver_config = SolverConfig(remat=act_bytes > 1e9)
+            # no-remat activation stash (N x M x width x 2 len(layers) x
+            # itemsize) passes 1 GB in f32; under bf16 hidden compute remat
+            # also re-pays the weight casts, so its threshold is 6 GB.
+            dtype = self.net_kwargs.get("compute_dtype") or self.dtype
+            itemsize = (getattr(torch, dtype) if isinstance(dtype, str) else dtype).itemsize
+            act_bytes = self.N * self.M * max(self.layers) * (2 * len(self.layers)) * itemsize
+            solver_config = SolverConfig(remat=act_bytes > (1e9 if itemsize >= 4 else 6e9))
         self.config = solver_config
 
-        self.net = build_network(
-            mode, self.layers, activation,
-            generator=torch.Generator().manual_seed(seed), device=self.device,
-        )
+        self.net = self._init_net(seed)
         self.params = self.net  # the module holds the parameters (JAX: the tree)
+        self._params = list(self.net.parameters())
 
         if correlation_type == "no_correlation":
             self.chol = None
@@ -175,14 +271,95 @@ class Trainer:
         self.loss_fn = make_loss_fn(problem, self.net, self.config)
         self.path_loss_fn = make_path_loss_fn(problem, self.net, self.config)
         self.net_u = make_net_u(self.net, transform=problem.transform_u)
+        self.refinement = TimeStepRefinement(Mm=Mm, n_cap=None) if Mm is not None else None
 
         self.training_loss: list[float] = []
         self.iteration: list[int] = []
         self.y0_log: list[float] = []
         self._tx = None
-        self._opt_state = None
+        self._opt_state: Optional[dict] = None
         self._opt_sig: Optional[tuple] = None
         self._next_it = 0
+        self._ema: Optional[torch.nn.Module] = None  # the live shadow, or None
+        self._ema_store: Optional[torch.nn.Module] = None  # its tensors, kept across resets
+        self._chunk_cache: dict[tuple, _Chunk] = {}
+        self._side_stream = None
+
+    def _init_net(self, seed: int) -> torch.nn.Module:
+        return build_network(
+            self.mode, self.layers, self.activation,
+            generator=torch.Generator().manual_seed(seed), device=self.device,
+            **self.net_kwargs,
+        )
+
+    def reset(self, seed: int) -> "Trainer":
+        """Re-initialize parameters, optimizer state, random stream, EMA
+        shadow and history for a fresh run, in place, KEEPING the captured
+        training iterations (as the JAX Trainer keeps its compiled chunks).
+        Returns self."""
+        with torch.no_grad():
+            for p, q in zip(self._params, self._init_net(seed).parameters()):
+                p.copy_(q)
+        self.generator.manual_seed(seed + 1)
+        if self._opt_state is not None:  # re-initialized as the next train() would
+            with torch.no_grad():
+                _assign(self._opt_state, self._tx.init(self._params))
+        self._ema = None
+        self._next_it = 0
+        self.training_loss, self.iteration, self.y0_log = [], [], []
+        self.collapse_restarts = []
+        return self
+
+    def warm_start_from(self, other: "Trainer") -> "Trainer":
+        """Adopt another trainer's learned state — params, EMA shadow,
+        generator state, iteration counter and history — and continue
+        training HERE (e.g. on a modified problem). The optimizer state is
+        not carried: the next ``train()`` starts it afresh. Returns self."""
+        if (self.layers != other.layers or self.mode != other.mode
+                or self.activation != other.activation):
+            raise ValueError(
+                "warm_start_from requires an identical network: "
+                f"{self.mode}/{self.activation}/{self.layers} vs "
+                f"{other.mode}/{other.activation}/{other.layers}"
+            )
+        with torch.no_grad():
+            for p, q in zip(self._params, other._params):
+                p.copy_(q)
+            if self._opt_state is not None:
+                _assign(self._opt_state, self._tx.init(self._params))
+        self._set_ema(other._ema)
+        self.generator.set_state(other.generator.get_state())
+        self._next_it = other._next_it
+        self.training_loss = list(other.training_loss)
+        self.iteration = list(other.iteration)
+        self.y0_log = list(other.y0_log)
+        return self
+
+    # ------------------------------------------------------------------- EMA
+    @property
+    def ema_params(self) -> torch.nn.Module:
+        """The Polyak/EMA-averaged net (``ema_decay`` must be set): a module
+        of the same structure as ``params``, for evaluation and serving."""
+        if self.ema_decay is None:
+            raise ValueError("Trainer was constructed without ema_decay")
+        return self._ema if self._ema is not None else self.net
+
+    def _set_ema(self, source: Optional[torch.nn.Module]) -> None:
+        """Make the shadow a copy of ``source`` (None: no shadow yet), in the
+        tensors the captured iterations bind."""
+        if source is None or self.ema_decay is None:
+            self._ema = None
+            return
+        if self._ema_store is None:
+            self._ema_store = copy.deepcopy(self.net).requires_grad_(False)
+        with torch.no_grad():
+            for e, p in zip(self._ema_store.parameters(), source.parameters()):
+                e.copy_(p)
+        self._ema = self._ema_store
+
+    def _ensure_ema(self) -> None:
+        if self.ema_decay is not None and self._ema is None:
+            self._set_ema(self.net)
 
     # ------------------------------------------------------------------ paths
     def fetch_minibatch(
@@ -196,123 +373,367 @@ class Trainer:
             self.problem.noise_dim, self.problem.T, self.chol, self.dtype,
         )
 
-    def _batch(self) -> tuple[Tensor, Tensor, Tensor]:
-        """One training batch in the loss's layout: (ts, dWs, X0)."""
+    def _increments(self, N: int) -> Tensor:
+        """One batch of increments (N, M, D), time-major, from the generator."""
         p = self.problem
         dW = brownian_increments(
-            self.generator, self.M, self.N, p.noise_dim, p.T / self.N, self.chol, self.dtype,
+            self.generator, self.M, N, p.noise_dim, p.T / N, self.chol, self.dtype,
             antithetic=self.antithetic,
         )
-        return self._ts, dW.transpose(0, 1), self._X0
+        return dW.transpose(0, 1)
+
+    def _batch(self) -> tuple[Tensor, Tensor, Tensor]:
+        """One training batch in the loss's layout: (ts, dWs, X0)."""
+        return self._ts, self._increments(self.N), self._X0
 
     # ------------------------------------------------------------- train step
-    def _select_optimizer(self, optimizer_type: str, learning_rate: float) -> None:
-        """Fresh optimizer state when (name, lr) changes, as the reference
-        builds a fresh optimizer for every ``train`` call that changes them."""
-        sig = (optimizer_type, learning_rate)
-        if self._opt_sig != sig:
-            self._tx = build_optimizer(optimizer_type, learning_rate)
-            self._opt_state = self._tx.init(list(self.params.parameters()))
-            self._opt_sig = sig
+    def _select_optimizer(self, optimizer_type: str, learning_rate: LearningRate,
+                          fresh: bool = False) -> None:
+        """The JAX Trainer's optimizer and chunk-reuse rules. A new (name,
+        lr) starts a fresh optimizer state, as the reference builds a fresh
+        optimizer for every ``train`` call that changes them. A float lr
+        after a float lr of the same optimizer lives in the state tensor, so
+        the fresh state is copied into the captured tensors and the captured
+        iterations are kept; another optimizer, or a schedule (whose update
+        rule is captured), gets new state tensors and drops them. ``fresh``
+        forces a fresh state, as every ``train`` call with a schedule does."""
+        schedule = callable(learning_rate)
+        sig = (optimizer_type, learning_rate if schedule else float(learning_rate))
+        if self._opt_state is not None and self._opt_sig == sig and not fresh:
+            return
+        tx = build_optimizer(optimizer_type, learning_rate)
+        state = tx.init(self._params)
+        prev = self._opt_sig
+        if (self._opt_state is None or schedule or prev is None or callable(prev[1])
+                or prev[0] != optimizer_type):
+            self._chunk_cache.clear()
+            self._opt_state = state
+        else:
+            with torch.no_grad():
+                _assign(self._opt_state, state)
+        self._tx = tx
+        self._opt_sig = sig
 
-    def step(
-        self, ts: Tensor, dWs: Tensor, X0: Tensor,
-        optimizer_type: str = "Adam", learning_rate: float = 1e-3,
-    ) -> tuple[Tensor, Tensor]:
-        """One optimizer step on the batch (ts (N+1,M,1), dWs (N,M,D),
-        X0 (M,D)); returns (loss, Y0) as device tensors, without a sync."""
-        self._select_optimizer(optimizer_type, learning_rate)
-        params = list(self.params.parameters())
-        res: RolloutResult = self.loss_fn(self.params, ts, dWs, X0)
+    def _update(self, ts: Tensor, dWs: Tensor, X0: Tensor, paths: bool = False) -> RolloutResult:
+        """One optimizer step on the batch, in place: parameters, optimizer
+        state and EMA shadow. Returns the rollout (detached loss and Y0)."""
+        params = self._params
+        res: RolloutResult = self.loss_fn(self.net, ts, dWs, X0, paths=paths)
         grads = torch.autograd.grad(res.loss, params)
         with torch.no_grad():
             updates, state = self._tx.update(grads, self._opt_state, params)
-            if self.nan_guard:
-                # skip the WHOLE update on a non-finite loss, optimizer state
-                # included, else NaN moments poison the next finite step
-                ok = torch.isfinite(res.loss)
-                for p, u in zip(params, updates):
-                    p.copy_(torch.where(ok, p + u, p))
-                state = {
-                    k: ([torch.where(ok, n, o) for n, o in zip(v, self._opt_state[k])]
-                        if isinstance(v, list) else torch.where(ok, v, self._opt_state[k]))
-                    for k, v in state.items()
-                }
-            else:
-                for p, u in zip(params, updates):
+            # the guard skips the WHOLE update on a non-finite loss, optimizer
+            # state and EMA included, else NaN moments poison the next step
+            ok = torch.isfinite(res.loss) if self.nan_guard else None
+            for p, u in zip(params, updates):
+                if ok is None:
                     p.add_(u)
-        self._opt_state = state
-        return res.loss.detach(), res.Y0.detach()
+                else:
+                    p.copy_(torch.where(ok, p + u, p))
+            _assign(self._opt_state, state, ok)
+            if self._ema is not None:
+                a = 1.0 - self.ema_decay
+                for e, p in zip(self._ema.parameters(), params):
+                    new = e + a * (p - e)
+                    e.copy_(new if ok is None else torch.where(ok, new, e))
+        return res._replace(loss=res.loss.detach(), Y0=res.Y0.detach())
+
+    def step(
+        self, ts: Tensor, dWs: Tensor, X0: Tensor,
+        optimizer_type: str = "Adam", learning_rate: LearningRate = 1e-3,
+    ) -> tuple[Tensor, Tensor]:
+        """One eager optimizer step on the batch (ts (N+1,M,1), dWs (N,M,D),
+        X0 (M,D)), the EMA update included; returns (loss, Y0) as device
+        tensors, without a sync. A captured iteration on the trainer's own
+        increments (``_batch``) computes the same, bit for bit."""
+        self._select_optimizer(optimizer_type, learning_rate)
+        self._ensure_ema()
+        res = self._update(ts, dWs, X0)
+        return res.loss, res.Y0
+
+    def _iteration(self, chunk: _Chunk) -> None:
+        """The body of a chunk: draw, step, and log into the chunk's buffers."""
+        res = self._update(chunk.ts, self._increments(chunk.N), self._X0, paths=self.track_best)
+        with torch.no_grad():
+            chunk.losses.index_copy_(0, chunk.idx, res.loss.reshape(1))
+            chunk.y0s.index_copy_(0, chunk.idx, res.Y0.reshape(1))
+            chunk.idx.add_(1)
+            if self.track_best:
+                better = res.loss < chunk.best_loss
+                chunk.best_loss.copy_(torch.where(better, res.loss, chunk.best_loss))
+                chunk.best_X.copy_(torch.where(better, res.X, chunk.best_X))
+                chunk.best_Y.copy_(torch.where(better, res.Y, chunk.best_Y))
+
+    def _get_chunk(self, N: int, optimizer_type: str, k: int) -> _Chunk:
+        """The chunk of (N, M, optimizer) and the body's features, as the
+        JAX ``_get_chunk`` keys them (lr_token None: the lr lives in the
+        state); a new one when the cached buffers hold fewer than k
+        iterations (JAX traces a new scan for a new length)."""
+        sig = (N, self.M, optimizer_type, None, self.nan_guard, self.ema_decay,
+               self.track_best, self.antithetic)
+        chunk = self._chunk_cache.get(sig)
+        if chunk is None or chunk.capacity < k:
+            chunk = self._chunk_cache[sig] = _Chunk(self, N, k)
+        return chunk
+
+    def _capture(self, chunk: _Chunk) -> None:
+        """Capture one iteration of ``chunk`` into a CUDA graph on a side
+        stream. The trainer's generator is registered with the graph, so each
+        replay draws what the next eager call would draw. A capture that
+        fails raises; nothing falls back to eager."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream):
+                self._iteration(chunk)
+        except RuntimeError as e:
+            raise RuntimeError(
+                "capturing the training iteration into a CUDA graph failed; the iteration "
+                "must run on the device without host reads or synchronization"
+            ) from e
+        chunk.graph = graph
+
+    def _run_chunk(self, chunk: _Chunk, k: int) -> None:
+        """Run k iterations of ``chunk`` (replays on a CUDA device)."""
+        chunk.idx.zero_()
+        if self.track_best:
+            chunk.best_loss.fill_(float("inf"))
+        if self.device.type != "cuda":
+            for _ in range(k):
+                self._iteration(chunk)
+            return
+        done = 0
+        with torch.cuda.device(self.device):
+            if chunk.graph is None:
+                if self._side_stream is None:
+                    self._side_stream = torch.cuda.Stream(self.device)
+                main = torch.cuda.current_stream(self.device)
+                if not chunk.warm:  # the warm-up: a real iteration, eager, on the side stream
+                    self._side_stream.wait_stream(main)
+                    with torch.cuda.stream(self._side_stream):
+                        self._iteration(chunk)
+                    main.wait_stream(self._side_stream)
+                    chunk.warm = True
+                    done = 1
+                if done < k:
+                    self._capture(chunk)
+            for _ in range(k - done):
+                chunk.graph.replay()
+
+    def _read_out(self, chunk: _Chunk, k: int) -> tuple:
+        """Start copying a chunk's logs (and best state) to the host; read
+        them after ``event`` (None on the CPU)."""
+        out = [torch.stack([chunk.losses[:k], chunk.y0s[:k]])]
+        if self.track_best:
+            out += [chunk.best_loss.clone(), chunk.best_X.clone(), chunk.best_Y.clone()]
+        out = [t.to("cpu", non_blocking=True) for t in out]
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return out, event
 
     # ------------------------------------------------------------------ train
     def train(
         self,
         n_iter: int,
-        learning_rate: float,
+        learning_rate: LearningRate,
         optimizer_type: str = "Adam",
         log_every: int = 100,
         verbose: bool = True,
     ) -> TrainResult:
         """Train for ``n_iter`` iterations. Successive calls continue the
-        iteration counter; changing the learning rate or optimizer resets
-        the optimizer state."""
-        self._select_optimizer(optimizer_type, learning_rate)
+        iteration counter; changing the learning rate or optimizer, or
+        passing a schedule ``count -> lr``, starts a fresh optimizer state."""
+        self._select_optimizer(optimizer_type, learning_rate, fresh=callable(learning_rate))
+        previous_it = self._next_it
         start = time.time()
         tick = start
         min_loss = float("inf")
-        done = 0
-        while done < n_iter:
-            k = min(log_every, n_iter - done)
-            losses = torch.empty(k, dtype=self.dtype, device=self.device)
-            y0s = torch.empty(k, dtype=self.dtype, device=self.device)
-            for i in range(k):
-                losses[i], y0s[i] = self.step(*self._batch(), optimizer_type, learning_rate)
-            it = self._next_it + done
-            logged = torch.stack([losses, y0s]).cpu().numpy()  # the chunk's one read
-            self.training_loss.append(float(logged[0].mean()))
-            self.iteration.append(it)
-            self.y0_log.append(float(logged[1, -1]))
-            min_loss = min(min_loss, float(logged[0].min()))
-            if verbose:
-                now = time.time()
-                print(
-                    f"It: {it}, Loss: {logged[0, -1]:.3e}, Y0: {logged[1, -1]:.3f}, "
-                    f"Time: {now - tick:.2f}, Learning Rate: {learning_rate:.3e}, N: {self.N}"
+        min_state: Optional[tuple[np.ndarray, np.ndarray]] = None
+        # One-chunk-deep log pipeline: a chunk's logs are read after the next
+        # chunk has been issued, so the host waits while the device works.
+        # With collapse_restart the chunk's Y0 is read at once instead.
+        pending: list[tuple] = []
+        schedule = callable(learning_rate)
+        lr_str = "schedule" if schedule else f"{learning_rate:.3e}"
+        lr_logged = "schedule" if schedule else learning_rate
+
+        def _drain(keep: int = 0):
+            nonlocal min_loss, min_state, tick
+            while len(pending) > keep:
+                it, b_N, (out, event) = pending.pop(0)
+                if event is not None:
+                    event.synchronize()
+                losses, y0s = out[0].numpy()
+                self.training_loss.append(float(losses.mean()))
+                self.iteration.append(it)
+                y0_last = float(y0s[-1])
+                self.y0_log.append(y0_last)
+                if self.track_best:
+                    b_loss = float(out[1])
+                    if b_loss < min_loss:
+                        min_loss = b_loss
+                        min_state = (out[2].numpy(), out[3].numpy())
+                else:
+                    min_loss = min(min_loss, float(losses.min()))
+                if self.metrics_file is not None:
+                    self._write_metrics(
+                        it=it, loss=float(losses[-1]), mean_loss=float(losses.mean()),
+                        y0=y0_last, lr=lr_logged, N=b_N, optimizer=optimizer_type,
+                        elapsed_s=time.time() - start,
+                    )
+                if verbose:
+                    now = time.time()
+                    print(
+                        f"It: {it}, Loss: {losses[-1]:.3e}, Y0: {y0_last:.3f}, "
+                        f"Time: {now - tick:.2f}, Learning Rate: {lr_str}, N: {b_N}"
+                    )
+                    tick = now
+
+        if self.refinement is not None:
+            buckets = list(self.refinement.buckets(previous_it, n_iter))
+        else:
+            buckets = [(previous_it, n_iter, self.N)]
+        for b_start, b_len, b_N in buckets:
+            done = 0
+            while done < b_len:
+                k = min(log_every, b_len - done)
+                chunk = self._get_chunk(b_N, optimizer_type, k)
+                self._ensure_ema()
+                retry_allowed = (
+                    self.collapse_restart
+                    and len(self.collapse_restarts) < self.collapse_max_restarts
                 )
-                tick = now
-            done += k
-        self._next_it += n_iter
+                if retry_allowed:
+                    snap = self._snapshot()
+                self._run_chunk(chunk, k)
+                if retry_allowed and self._collapsed_y0(float(chunk.y0s[k - 1])):
+                    # roll back to the pre-chunk state and retry on a re-seeded
+                    # stream; the failed chunk is not logged and does not
+                    # advance the iteration counter
+                    seed = self._reroll_seed(len(self.collapse_restarts))
+                    self._restore(snap)
+                    self.generator.manual_seed(seed)
+                    self.collapse_restarts.append(b_start + done)
+                    if verbose:
+                        print(
+                            f"It: {b_start + done}, collapse detected (Y0 pinned) — rolled "
+                            f"back, restart {len(self.collapse_restarts)}/"
+                            f"{self.collapse_max_restarts}"
+                        )
+                    continue
+                pending.append((b_start + done, b_N, self._read_out(chunk, k)))
+                _drain(keep=0 if retry_allowed else 1)
+                done += k
+
+        _drain(keep=0)
+        self._next_it = previous_it + n_iter
         return TrainResult(
             graph=np.stack((np.asarray(self.iteration), np.asarray(self.training_loss))),
             min_loss=min_loss,
-            min_loss_state=None,
+            min_loss_state=min_state,
             y0_history=np.asarray(self.y0_log),
             wall_time=time.time() - start,
         )
 
+    def _snapshot(self) -> tuple:
+        """Copies of (params, optimizer state, EMA) before a chunk."""
+        ema = None if self._ema is None else [e.clone() for e in self._ema.parameters()]
+        return [p.detach().clone() for p in self._params], _clone_state(self._opt_state), ema
+
+    def _restore(self, snap: tuple) -> None:
+        params, state, ema = snap
+        with torch.no_grad():
+            for p, s in zip(self._params, params):
+                p.copy_(s)
+            _assign(self._opt_state, state)
+            if ema is not None:
+                for e, s in zip(self._ema.parameters(), ema):
+                    e.copy_(s)
+
+    def _reroll_seed(self, n: int) -> int:
+        """The seed of the stream after the n-th collapse restart: a hash of
+        the generator's current state and 7919 + n, as the JAX Trainer folds
+        7919 + n into its current key."""
+        state = self.generator.get_state().numpy().tobytes()
+        digest = hashlib.blake2b(state + (7919 + n).to_bytes(8, "little"), digest_size=8)
+        return int.from_bytes(digest.digest(), "little") >> 1
+
+    def _collapsed_y0(self, y0: float) -> bool:
+        """Degenerate-trajectory predicate: Y0 pinned at the problem's output
+        clamp (the absorbing state) or non-finite."""
+        if not np.isfinite(y0):
+            return True
+        c = self.problem.clamp_u
+        return c is not None and abs(y0 - c) <= self.collapse_tol
+
+    def _write_metrics(self, **row) -> None:
+        """Append one JSON line per log point."""
+        path = Path(self.metrics_file)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
     def polish(self, *args, **kwargs):
         raise NotImplementedError(f"Trainer.polish (LBFGS) {_LATER}")
 
+    # ------------------------------------------------------------- checkpoint
     def save_model(self, file_name: str) -> None:
-        raise NotImplementedError(f"Trainer.save_model {_LATER}")
+        """Persist params, optimizer state with its signature, iteration
+        counter, history, the generator's state and the EMA shadow. A
+        schedule's optimizer state is not saved: the schedule cannot be."""
+        saved_sig = None if self._opt_sig is None or callable(self._opt_sig[1]) else self._opt_sig
+        save_checkpoint(
+            file_name,
+            params=self.net.state_dict(),
+            opt_state=self._opt_state if saved_sig is not None else None,
+            opt_sig=None if saved_sig is None else list(saved_sig),
+            next_it=self._next_it,
+            training_loss=self.training_loss,
+            iteration=self.iteration,
+            y0_log=self.y0_log,
+            generator=self.generator.get_state(),
+            ema=self._ema.state_dict() if self._ema is not None else None,
+        )
 
     def load_model(self, file_name: str) -> None:
-        raise NotImplementedError(f"Trainer.load_model {_LATER}")
+        """Restore a :meth:`save_model` checkpoint into this trainer's
+        tensors, so that its next chunk is the one the saved run would have
+        run next."""
+        state = restore_checkpoint(file_name)
+        self.net.load_state_dict(state["params"])  # copies in place
+        saved_sig = state.get("opt_sig")
+        if saved_sig is not None and state["opt_state"] is not None:
+            self._select_optimizer(saved_sig[0], float(saved_sig[1]))
+            with torch.no_grad():
+                _assign(self._opt_state, state["opt_state"])
+        self.training_loss = list(state["training_loss"])
+        self.iteration = list(state["iteration"])
+        self.y0_log = list(state.get("y0_log", []))
+        self._next_it = int(state.get("next_it", self.iteration[-1] if self.iteration else 0))
+        if state.get("generator") is not None:
+            self.generator.set_state(state["generator"])
+        if state.get("ema") is not None and self.ema_decay is not None:
+            self._set_ema(self.net)
+            self._ema.load_state_dict(state["ema"])
 
     # ---------------------------------------------------------------- predict
     def _as_tensor(self, a) -> Tensor:
         return torch.as_tensor(a, dtype=self.dtype).to(self.device)
 
-    def predict(self, Xi_star, t_star, W_star) -> tuple[np.ndarray, np.ndarray]:
+    def predict(self, Xi_star, t_star, W_star, use_ema: bool = False) -> tuple[np.ndarray, np.ndarray]:
         """Run the trained model along given paths → (X_star, Y_star). Does
-        not mutate M."""
+        not mutate M. ``use_ema=True`` evaluates the EMA shadow (requires
+        ``ema_decay``)."""
+        net = self.ema_params if use_ema else self.net
         t_star, W_star = self._as_tensor(t_star), self._as_tensor(W_star)
         Xi_star = self._as_tensor(Xi_star).reshape(-1, self.problem.dim)
         M = max(Xi_star.shape[0], t_star.shape[0], W_star.shape[0])
         t_star = t_star.expand((M,) + t_star.shape[1:])
         W_star = W_star.expand((M,) + W_star.shape[1:])
         with torch.no_grad():
-            res = self.path_loss_fn(self.params, t_star, W_star, Xi_star)
+            res = self.path_loss_fn(net, t_star, W_star, Xi_star)
         return res.X.cpu().numpy(), res.Y.cpu().numpy()
 
     def evaluate_u(self, t, X) -> tuple[np.ndarray, np.ndarray]:
@@ -326,7 +747,21 @@ class Trainer:
 
 
 class TrainingPhases:
-    """The reference's two-phase training protocol; not ported yet."""
+    """The reference's two-phase protocol: an initial phase, then a
+    fine-tuning phase at a smaller learning rate."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"TrainingPhases {_LATER}")
+    def __init__(self, trainer: Trainer, optimizer_type: str = "Adam"):
+        self.trainer = trainer
+        self.optimizer_type = optimizer_type
+
+    def train_initial_phase(self, n_iter: int = 2000, learning_rate: float = 1e-3) -> TrainResult:
+        tic = time.time()
+        out = self.trainer.train(n_iter, learning_rate, self.optimizer_type)
+        print(f"initial phase: {time.time() - tic:.2f}s")
+        return out
+
+    def fine_tuning_phase(self, n_iter: int = 500, learning_rate: float = 1e-5) -> TrainResult:
+        tic = time.time()
+        out = self.trainer.train(n_iter, learning_rate, self.optimizer_type)
+        print(f"fine-tuning phase: {time.time() - tic:.2f}s")
+        return out

@@ -360,3 +360,151 @@ def test_k4_matches_plain_version_at_full_shape(cuda_device, N, correlated):
 def test_k4_matches_plain_version_with_a_partial_last_block(cuda_device, correlated):
     args, chol = _k4_case(100, correlated, M=2 * 1001, N=3)
     _check_k4(cuda_device, args, chol, tile_m=2)
+
+
+# ---- the training chunk as a CUDA graph -------------------------------------
+#
+# Trainer.train captures one iteration per chunk into a CUDA graph and replays
+# it; Trainer.step runs the same iteration eagerly. On the same generator state
+# the two must agree bit for bit: the same kernels on the same inputs, and the
+# graph draws its increments from the trainer's registered generator.
+
+CHUNK_D, CHUNK_M, CHUNK_N = 8, 16, 6
+CHUNK_LAYERS = [CHUNK_D + 1, 64, 64, 1]
+
+
+def _clamped_bsb():
+    """BSB with u clamped at 0: an absorbing state once u < 0 everywhere."""
+    import dataclasses
+
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+
+    @dataclasses.dataclass(frozen=True)
+    class ClampedBSB(BlackScholesBarenblatt):
+        @property
+        def clamp_u(self):
+            return 0.0
+
+    return ClampedBSB(D=CHUNK_D)
+
+
+def _chunk_trainer(device, backend, seed=0, remat=False, prob=None, **kw):
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.solver import SolverConfig
+    from dnnpde_tpu_torch.train import Trainer
+
+    return Trainer(prob or BlackScholesBarenblatt(D=CHUNK_D), M=CHUNK_M, N=CHUNK_N, layers=CHUNK_LAYERS,
+                   seed=seed, device=device, ema_decay=0.9,
+                   solver_config=SolverConfig(fused_net_u=backend, remat=remat), **kw)
+
+
+def _eager_steps(tr, k, lr=1e-3):
+    out = [tr.step(*tr._batch(), "Adam", lr) for _ in range(k)]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def _assert_same_state(a, b):
+    """Parameters, optimizer state, EMA and generator, bit for bit."""
+    for x, y in zip(a._params, b._params):
+        assert torch.equal(x, y)
+    for k, v in a._opt_state.items():
+        xs, ys = (v, b._opt_state[k]) if isinstance(v, list) else ([v], [b._opt_state[k]])
+        for x, y in zip(xs, ys):
+            assert torch.equal(x, y), k
+    for x, y in zip(a.ema_params.parameters(), b.ema_params.parameters()):
+        assert torch.equal(x, y)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def _last_chunk(tr, k):
+    chunk = next(iter(tr._chunk_cache.values()))
+    assert chunk.graph is not None, "the chunk was not captured"
+    return chunk.losses[:k], chunk.y0s[:k]
+
+
+@pytest.mark.parametrize("backend,guard,best,remat", [
+    ("cuda", False, False, False), ("cuda", True, False, False), ("cuda", True, True, False),
+    (False, False, False, False), (False, True, False, False), (False, False, True, False),
+    (False, False, False, True),
+], ids=["k1k2", "k1k2-guard", "k1k2-guard-best", "f32", "f32-guard", "f32-best", "f32-remat"])
+def test_captured_chunk_equals_eager_steps(cuda_device, backend, guard, best, remat):
+    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
+
+    k = 8
+    kw = dict(nan_guard=guard, track_best=best, remat=remat)
+    captured, eager = _chunk_trainer(cuda_device, backend, **kw), _chunk_trainer(cuda_device,
+                                                                                   backend, **kw)
+    fwd, bwd = mlp_u_z_fwd.launches, mlp_u_z_bwd.launches
+    res = captured.train(k, 1e-3, log_every=k, verbose=False)
+    # the wrappers count the eager warm-up iteration and the capture, not the replays
+    per_iteration = (CHUNK_N + 1) if backend == "cuda" else 0
+    assert mlp_u_z_fwd.launches - fwd == 2 * per_iteration
+    assert mlp_u_z_bwd.launches - bwd == 2 * per_iteration
+    losses, y0s = _eager_steps(eager, k)
+    got_losses, got_y0s = _last_chunk(captured, k)
+    assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
+    _assert_same_state(captured, eager)
+    if best:
+        assert res.min_loss == float(losses.min())
+        X, Y = res.min_loss_state
+        assert X.shape == (CHUNK_M, CHUNK_N + 1, CHUNK_D) and np.isfinite(Y).all()
+
+
+@pytest.mark.parametrize("event", ["reset", "load", "lr", "reroll"])
+def test_next_replayed_chunk_equals_the_eager_continuation(cuda_device, tmp_path, event):
+    k = 6
+    backend, kw = "cuda", {}
+    if event == "reroll":  # one restart allowed, on a clamped BSB, which K1 + K2 do not serve
+        backend = False
+        kw = dict(prob=_clamped_bsb(), collapse_restart=True, collapse_max_restarts=1)
+    captured = _chunk_trainer(cuda_device, backend, **kw)
+    eager = _chunk_trainer(cuda_device, backend, **kw)
+    if event == "reroll":
+        with torch.no_grad():  # u well above the clamp: the first chunk is healthy
+            for tr in (captured, eager):
+                tr.params.dense[-1].linear.bias.add_(10.0)
+    captured.train(k, 1e-3, log_every=k, verbose=False)
+    _eager_steps(eager, k)
+    chunk = next(iter(captured._chunk_cache.values()))
+    lr = 1e-3
+    if event == "reset":
+        captured.reset(3)
+        eager.reset(3)
+    elif event == "load":
+        captured.save_model(str(tmp_path / "c.pt"))
+        loaded = _chunk_trainer(cuda_device, "cuda", seed=9)
+        loaded.train(k, 1e-3, log_every=k, verbose=False)  # its own captured chunk
+        chunk = next(iter(loaded._chunk_cache.values()))
+        loaded.load_model(str(tmp_path / "c.pt"))
+        captured = loaded
+    elif event == "lr":
+        lr = 1e-4  # a float lr change: a fresh optimizer state in the captured tensors
+    else:  # a real collapse: train rolls the failed chunk back and re-rolls the stream
+        with torch.no_grad():  # u <= 0 everywhere: Y0 is pinned at the clamp
+            for tr in (captured, eager):
+                tr.params.dense[-1].linear.bias.sub_(1e3)
+        snap = eager._snapshot()
+        _eager_steps(eager, k)  # the failed chunk
+        seed = eager._reroll_seed(0)
+        eager._restore(snap)
+        eager.generator.manual_seed(seed)
+    captured.train(k, lr, log_every=k, verbose=False)
+    assert next(iter(captured._chunk_cache.values())) is chunk  # replayed, not captured again
+    assert captured.collapse_restarts == ([k] if event == "reroll" else [])
+    losses, y0s = _eager_steps(eager, k, lr)
+    got_losses, got_y0s = _last_chunk(captured, k)
+    assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
+    _assert_same_state(captured, eager)
+
+
+def test_a_failed_capture_raises(cuda_device):
+    tr = _chunk_trainer(cuda_device, False)
+
+    def host_read_schedule(count):  # reads the device count back: no capture can hold that
+        return 1e-3 + 0.0 * float(count)
+
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        tr.train(4, host_read_schedule, log_every=4, verbose=False)
+    torch.cuda.synchronize()
+    chunk = next(iter(tr._chunk_cache.values()))
+    assert chunk.warm and chunk.graph is None  # the warm-up ran; nothing replays eagerly

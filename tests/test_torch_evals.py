@@ -97,10 +97,11 @@ def test_heston_layout_and_ema_raise(trainers):
     assert price.shape == delta.shape == gamma.shape == (2,)
     u, dl, gm = compute_greeks(tr2, [[0.5], [0.5]], [[0.9, 0.04], [1.1, 0.05]])
     np.testing.assert_array_equal(delta, dl[:, 0])
-    with pytest.raises(NotImplementedError, match="EMA"):
+    # use_ema needs a trainer built with ema_decay, as in the JAX package
+    with pytest.raises(ValueError, match="ema_decay"):
         compute_greeks(trainers[1], [[0.0]], [[1.0] * D], use_ema=True)
-    with pytest.raises(NotImplementedError, match="EMA"):
-        PredictionGenerator(trainers[1], use_ema=True)
+    with pytest.raises(ValueError, match="ema_decay"):
+        PredictionGenerator(trainers[1], use_ema=True).generate_predictions()
 
 
 def test_prediction_generator_shapes_and_seeding(trainers):

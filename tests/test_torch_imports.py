@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``dnnpde_tpu_torch``, not
-``chip_smoke.py`` and not the port's scripts ``scripts/time_tree.py`` and
-``scripts/k4_anatomy.py`` imports
+``chip_smoke.py`` and not the port's scripts ``scripts/time_tree.py``,
+``scripts/k4_anatomy.py`` and ``scripts/anneal_20k.py`` imports
 JAX, Flax, Optax or the JAX package; and its entry points never fall back to
 the CPU on their own.
 
@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dnnpde_tpu")
 def _port_sources() -> list[Path]:
     files = sorted((ROOT / "dnnpde_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f"{s}.py" for s in ("time_tree", "k4_anatomy")]
+        ROOT / "scripts" / f"{s}.py" for s in ("time_tree", "k4_anatomy", "anneal_20k")]
 
 
 def _imported_modules(path: Path) -> list[str]:
