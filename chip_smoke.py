@@ -55,12 +55,26 @@ built for CUDA. It
    and ``predict_paths_fast`` through K3 with (mu_c, sig_c) = (0.05, 0.2)
    against the plain rollout;
 
-   on each of the three paths all four launch counters are set to 0 just
+8. holds a 20-iteration captured chunk bit for bit against 20 eager
+   ``Trainer.step`` calls for a NAIS-Net trainer (HJB-100) and a Heston
+   trainer, then drives the harness path (the rows of ``bench/harness.py``
+   that no kernel serves, each on the f32 autograd path in captured
+   chunks): HJB-100 on NAIS-Net ReLU [101, 256 x 4, 1], M = 16, 1000
+   iterations (the loss must fall and |Y0 - hjb_exact_mc| halve from
+   iteration 100 to the end); Heston on FC-Sine [3, 256 x 4, 1], M = 128,
+   the "bs" head, 1000 iterations (Y0 within 5 % of the closed form; the
+   closed form, ``heston_mc_price`` and ``crank_nicolson_heston`` agree at
+   ``tests/test_numerics.py``'s tolerances; the served (u, Z) equal the
+   trainer's net_u within 1e-5 of max|.|, finite at t = T); the basket on
+   NAIS-Net Sine, 400 iterations (the FC basket's loss and |Y0 - oracle|
+   checks);
+
+   on each of the four paths all four launch counters are set to 0 just
    before it runs and read just after; the kernels line reports each
    kernel's launches path by path (K1's and K2's on the training and basket
-   paths from the run's trace, the others from the wrappers) beside the
-   wrapper calls;
-8. times training (iterations/s at M = 100, 512, 2048 on both paths,
+   paths from the run's trace, the others from the wrappers; none is on the
+   harness path) beside the wrapper calls;
+9. times training (iterations/s at M = 100, 512, 2048 on both paths,
    captured chunks and eager ``Trainer.step`` loops, and the basket run),
    traces BSB-100 kernel-path iterations at M = 100 with ``torch.profiler``,
    captured and eager (wall ms per iteration, device-busy ms, the device's
@@ -1142,6 +1156,206 @@ def time_basket(run, device) -> dict:
     }
 
 
+# ---- the harness path ---------------------------------------------------------
+#
+# The oracle-gated rows of bench/harness.py that the FC kernel paths above do
+# not cover: NAIS-Net on the HJB and the basket, and the Heston problem with
+# its full diffusion and BS control-variate head. No kernel serves them (K1 +
+# K2 take plain MLPs without an output transform, K3 GBM-type problems, and
+# the basket oracle here is basket_call_mc), so each trains on the f32
+# autograd path in captured chunks.
+
+HJB_M, HJB_ITERS = 16, 1000  # the reference-config row's M
+HESTON_M, HESTON_ITERS = 128, 1000
+NAIS_BASKET_ITERS = 400
+HARNESS_LOG_EVERY = 100
+HARNESS_CAPTURE_ITERS = 20
+HESTON_Y0_TOL = 0.05  # |Y0 - closed form| after 1000 iterations, relative
+HESTON_MC_PATHS, HESTON_MC_STEPS = 100_000, 1000  # heston_mc_price's defaults
+HESTON_SERVE_B = 4096
+
+
+def _timed_train(trainer, iters: int, lr: float = 1e-3):
+    t0 = time.perf_counter()
+    res = trainer.train(iters, lr, "Adam", log_every=HARNESS_LOG_EVERY, verbose=False)
+    return res, time.perf_counter() - t0
+
+
+def check_harness_capture(device) -> dict:
+    """A 20-iteration captured chunk against 20 eager ``Trainer.step`` calls
+    from the same state, bit for bit, for a NAIS-Net trainer (HJB-100) and a
+    Heston trainer."""
+    from dnnpde_tpu_torch.pde import HamiltonJacobiBellman, HestonPDE
+    from dnnpde_tpu_torch.train import Trainer
+
+    k, out = HARNESS_CAPTURE_ITERS, {}
+    cases = {"naisnet_hjb": (HamiltonJacobiBellman(D=D), "Naisnet", "ReLU", HJB_M),
+             "heston": (HestonPDE(), "FC", "Sine", HESTON_M)}
+    for name, (prob, mode, act, M) in cases.items():
+        captured, eager = (Trainer(prob, M=M, N=N_STEPS, mode=mode, activation=act, seed=6,
+                                   ema_decay=0.999, device=device) for _ in range(2))
+        captured.train(k, 1e-3, "Adam", log_every=k, verbose=False)
+        chunk = next(iter(captured._chunk_cache.values()))
+        _require(chunk.graph is not None, f"the {name} chunk was not captured")
+        steps = [eager.step(*eager._batch(), "Adam", 1e-3) for _ in range(k)]
+        same = {
+            "losses": torch.equal(chunk.losses[:k], torch.stack([s[0] for s in steps])),
+            "y0": torch.equal(chunk.y0s[:k], torch.stack([s[1] for s in steps])),
+            "params": all(torch.equal(a, b) for a, b in zip(captured._params, eager._params)),
+            "ema": all(torch.equal(a, b) for a, b in zip(captured.ema_params.parameters(),
+                                                         eager.ema_params.parameters())),
+            "generator": torch.equal(captured.generator.get_state(),
+                                     eager.generator.get_state()),
+        }
+        print(f"harness {name}: captured chunk of {k} iterations vs {k} eager steps, "
+              f"bitwise: {json.dumps(same)}")
+        _require(all(same.values()), f"the {name} captured chunk differs from the eager steps")
+        out[name] = same
+    return out
+
+
+def drive_harness(device) -> dict:
+    """The harness path through the user entry points: HJB-100 on NAIS-Net
+    ReLU against ``hjb_exact_mc``; Heston (FC-Sine, the "bs" head) against
+    its closed form, Milstein Monte Carlo and Crank-Nicolson, then served;
+    the basket on NAIS-Net Sine against ``basket_call_mc``. Returns the
+    launch counts of all four kernels in this run (none is on this path)
+    and what it computed."""
+    from dnnpde_tpu_torch.numerics import (
+        CNGrid,
+        HestonParams,
+        basket_call_mc,
+        crank_nicolson_heston,
+        heston_call_price,
+        heston_mc_price,
+        hjb_exact_mc,
+    )
+    from dnnpde_tpu_torch.pde import BasketCallOption, HamiltonJacobiBellman, HestonPDE
+    from dnnpde_tpu_torch.serve import load_solution, save_solution
+    from dnnpde_tpu_torch.train import Trainer
+
+    zero_counts()
+    out: dict = {"rows": {}}
+    gen = torch.Generator(device=device)
+
+    prob = HamiltonJacobiBellman(D=D)
+    hjb = Trainer(prob, M=HJB_M, N=N_STEPS, mode="Naisnet", activation="ReLU", seed=0,
+                  device=device)
+    res, seconds = _timed_train(hjb, HJB_ITERS)
+    oracle = float(hjb_exact_mc(gen.manual_seed(0), 0.0, np.zeros(D)))
+    out["rows"]["hjb_100d_naisnet_relu"] = dict(
+        M=HJB_M, iterations=HJB_ITERS, seconds=seconds, it_per_s=HJB_ITERS / seconds,
+        oracle=oracle, y0=res.y0_history.tolist(), mean_loss=res.graph[1].tolist())
+
+    prob = HestonPDE()
+    params = HestonParams(K=prob.strike, r=prob.r, T=prob.T, kappa=prob.kappa,
+                          theta=prob.theta, sigma=prob.sigma_v, rho=prob.rho, v0=prob.v0)
+    heston = Trainer(prob, M=HESTON_M, N=N_STEPS, seed=0, device=device)
+    res, seconds = _timed_train(heston, HESTON_ITERS)
+    closed = float(heston_call_price(prob.S0, prob.v0, params, order=512, device=device))
+    mc = tuple(float(v) for v in heston_mc_price(
+        gen.manual_seed(0), prob.S0, params, HESTON_MC_PATHS, HESTON_MC_STEPS))
+    # test_numerics.py's Crank-Nicolson case: S0 = K = 100, r = 0.03, 60 x 30 x 400
+    cn_params = HestonParams(K=100.0, r=0.03, T=1.0, kappa=2.0, theta=0.2, sigma=0.3,
+                             rho=0.8, v0=0.2)
+    cn = crank_nicolson_heston(100.0, cn_params, CNGrid(S_max=200.0, v_max=0.5, n_S=60,
+                                                        n_v=30, n_t=400),
+                               dtype=torch.float64, device=device)[0]
+    cn_closed = float(heston_call_price(100.0, 0.2, cn_params, order=512,
+                                        device=device).double())
+    rng = torch.Generator().manual_seed(33)
+    t_req = torch.rand((HESTON_SERVE_B, 1), generator=rng)
+    t_req[: HESTON_SERVE_B // 8] = prob.T  # the head's terminal values
+    X_req = torch.stack([torch.exp(0.3 * torch.randn(HESTON_SERVE_B, generator=rng)),
+                         0.4 * torch.rand(HESTON_SERVE_B, generator=rng)], dim=-1)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_solution(f"{tmp}/heston.pt", heston)
+        served = load_solution(f"{tmp}/heston.pt", device=device).u_and_grad(t_req, X_req)
+    with torch.no_grad():
+        ref = heston.net_u(t_req.to(device), X_req.to(device))
+    out["rows"]["heston_m128"] = dict(
+        M=HESTON_M, iterations=HESTON_ITERS, seconds=seconds,
+        it_per_s=HESTON_ITERS / seconds, oracle=closed, y0=res.y0_history.tolist(),
+        mean_loss=res.graph[1].tolist())
+    out["heston"] = {"closed": closed, "mc": mc, "cn": cn, "cn_closed": cn_closed,
+                     "served": served, "net_u": tuple(r.cpu().numpy() for r in ref),
+                     "terminal": t_req[:, 0] == prob.T}
+
+    prob = BasketCallOption(D=D)
+    basket = Trainer(prob, M=TRAIN_M, N=N_STEPS, mode="Naisnet", seed=1, device=device)
+    y0_init = float(basket.evaluate_u([[0.0]], prob.x0[None])[0][0, 0])
+    res, seconds = _timed_train(basket, NAIS_BASKET_ITERS)
+    oracle = basket_call_mc(gen.manual_seed(0), prob.x0.to(device), prob.strike, prob.T,
+                            prob.r, prob.sigma_bar, num_paths=BASKET_ORACLE_PATHS)
+    out["rows"]["basket_100d_naisnet_sine"] = dict(
+        M=TRAIN_M, iterations=NAIS_BASKET_ITERS, seconds=seconds,
+        it_per_s=NAIS_BASKET_ITERS / seconds, oracle=float(oracle[0]),
+        oracle_se=float(oracle[1]), y0_init=y0_init, y0=res.y0_history.tolist(),
+        mean_loss=res.graph[1].tolist())
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out["counts"] = read_counts()
+    for name, row in out["rows"].items():
+        print(f"harness {name}: " + json.dumps(row))
+    print(f"harness heston oracles: closed form {closed:.6f}, heston_mc_price "
+          f"{mc[0]:.6f} +- {mc[1]:.6f}; Crank-Nicolson (K = 100) {cn:.6f} vs closed form "
+          f"{cn_closed:.6f}")
+    print(f"harness path: kernel launches {json.dumps(out['counts'])}")
+    return out
+
+
+def check_harness(run) -> None:
+    """The harness path's checks: the losses fall, HJB-100's |Y0 - oracle|
+    halves from iteration 100 to the end, Heston's Y0 is finite and within
+    5 % of the closed form, the three Heston oracles agree at
+    test_numerics.py's tolerances, the served Heston (u, Z) equal the
+    trainer's net_u within SERVE_REL_TOL of max|.|, Z at t = T is finite,
+    and the NAIS-Net basket passes the FC basket's checks."""
+    rows = run["rows"]
+    for name, row in rows.items():
+        losses = np.asarray(row["mean_loss"])
+        _require(bool(np.isfinite(losses).all() and np.isfinite(row["y0"]).all()),
+                 f"harness {name}: non-finite loss or Y0")
+        _require(losses[-1] < losses[0], f"harness {name}: the mean logged loss did not fall")
+    hjb = rows["hjb_100d_naisnet_relu"]
+    err100, err = (abs(hjb["y0"][i] - hjb["oracle"]) for i in (0, -1))
+    print(f"harness HJB |Y0 - oracle|: {err100:.5f} after {HARNESS_LOG_EVERY} iterations -> "
+          f"{err:.5f} after {HJB_ITERS}")
+    _require(err < 0.5 * err100, "HJB-100: |Y0 - oracle| did not halve from iteration 100")
+
+    hes = rows["heston_m128"]
+    # the harness's read of a run's Y0: the mean of its last three logs (a
+    # logged Y0 at M = 128 wobbles some 5 % from log to log)
+    y0 = float(np.mean(hes["y0"][-3:]))
+    rel = abs(y0 - hes["oracle"]) / hes["oracle"]
+    print(f"harness Heston Y0 (last three logs) {y0:.6f} vs closed form {hes['oracle']:.6f}: "
+          f"rel {rel:.4f} (tol {HESTON_Y0_TOL})")
+    _require(rel < HESTON_Y0_TOL, "Heston: Y0 not within 5 % of the closed form")
+    h = run["heston"]
+    (mc, se) = h["mc"]
+    _require(abs(mc - h["closed"]) < 4 * se + 5e-3,
+             f"Heston: Milstein MC {mc} +- {se} vs closed form {h['closed']}")
+    _require(abs(h["cn"] - h["cn_closed"]) < 0.01 * h["cn_closed"],
+             f"Heston: Crank-Nicolson {h['cn']} vs closed form {h['cn_closed']}")
+    (u, Z), (u_ref, Z_ref) = h["served"], h["net_u"]
+    _, ru = _rel_err(torch.from_numpy(u), torch.from_numpy(u_ref))
+    _, rz = _rel_err(torch.from_numpy(Z), torch.from_numpy(Z_ref))
+    terminal = h["terminal"].numpy()
+    print(f"harness Heston served (u, Z) vs trainer net_u: rel du {ru:.3e} rel dZ {rz:.3e} "
+          f"(tol {SERVE_REL_TOL:g}); {int(terminal.sum())} requests at t = T")
+    _require(bool(np.isfinite(u).all() and np.isfinite(Z).all()), "Heston: served non-finite")
+    _require(bool(np.isfinite(Z[terminal]).all()), "Heston: Z at t = T non-finite")
+    _require(ru <= SERVE_REL_TOL and rz <= SERVE_REL_TOL, "Heston: served (u, Z) off net_u")
+
+    bsk = rows["basket_100d_naisnet_sine"]
+    losses = bsk["mean_loss"]
+    _require(losses[0] >= 10 * losses[-1],
+             f"NAIS-Net basket: mean logged loss fell only {losses[0] / losses[-1]:.2f}x")
+    err0, err1 = abs(bsk["y0_init"] - bsk["oracle"]), abs(bsk["y0"][-1] - bsk["oracle"])
+    print(f"harness NAIS-Net basket |Y0 - oracle|: {err0:.6f} -> {err1:.6f}")
+    _require(err1 <= 0.5 * err0, "NAIS-Net basket: |Y0 - oracle| did not halve")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: torch.cuda.is_available() is False; this script "
@@ -1188,6 +1402,9 @@ def main() -> int:
     check_serving(run, device)
     basket = drive_basket(device)
     check_basket(basket, device)
+    check_harness_capture(device)
+    harness = drive_harness(device)
+    check_harness(harness)
 
     print("training rate: " + json.dumps(time_training(device)))
     print("training iteration (traced, captured chunk): " + json.dumps(trace_iteration(device)))
@@ -1195,6 +1412,9 @@ def main() -> int:
           + json.dumps(trace_iteration(device, eager=True)))
     print("serving latency: " + json.dumps(time_serving(run)))
     print("basket path: " + json.dumps(time_basket(basket, device)))
+    print("harness rows (captured it/s, seconds): " + json.dumps(
+        {name: {"it_per_s": row["it_per_s"], "seconds": row["seconds"]}
+         for name, row in harness["rows"].items()}))
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
@@ -1202,7 +1422,7 @@ def main() -> int:
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
     k4.update(time_k4(device)["basket"])  # the basket path's shape
 
-    paths = {"training": train, "serving": run, "basket": basket}
+    paths = {"training": train, "serving": run, "basket": basket, "harness": harness}
 
     def launches(name, traced_names=()):
         """The kernel's launches on each path: on the training and basket

@@ -173,7 +173,3 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps(run()))
     return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -16,7 +16,10 @@ def sine(x: torch.Tensor) -> torch.Tensor:
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, min=0.0)
+    """max(x, 0), with JAX's ``jnp.maximum`` derivative at the tie x = 0
+    (½, where ``torch.clamp`` gives 1 and ``torch.relu`` 0): a NAIS-Net
+    with zero biases sees exact zeros at the HJB's x0 = 0."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 from dnnpde_tpu_torch.pde.base import PDEProblem
+from dnnpde_tpu_torch.pde.heston import HestonPDE
 from dnnpde_tpu_torch.pde.problems import (
     BasketCallOption,
     BlackScholesBarenblatt,
     BSPDETestCase,
     CallOption1D,
     CallOptionND,
+    HamiltonJacobiBellman,
 )
 
 __all__ = [
@@ -14,4 +16,6 @@ __all__ = [
     "CallOptionND",
     "BasketCallOption",
     "BSPDETestCase",
+    "HamiltonJacobiBellman",
+    "HestonPDE",
 ]

@@ -1,5 +1,7 @@
-"""The PDE problems ported so far: the flagship Black–Scholes–Barenblatt and
-the GBM-type calls and baskets (diagonal dynamics μ = μ_c·X, σ = σ̄·diag(X)).
+"""The PDE problems ported so far: the flagship Black–Scholes–Barenblatt,
+the GBM-type calls and baskets (diagonal dynamics μ = μ_c·X, σ = σ̄·diag(X))
+and the Hamilton–Jacobi–Bellman equation. The Heston problem is in
+``pde/heston.py``.
 
 Strike conventions as in the JAX package: K = 1.0·D for the 1D/nD calls
 (``strike`` overrides it), K = 1.0 for the basket.
@@ -8,6 +10,7 @@ Strike conventions as in the JAX package: K = 1.0·D for the 1D/nD calls
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -236,3 +239,33 @@ class BSPDETestCase(PDEProblem):
         return torch.exp((self.r + self.sigma_bar**2) * (self.T - t)) * torch.sum(
             X**2, dim=-1, keepdim=True
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class HamiltonJacobiBellman(PDEProblem):
+    """HJB equation: phi = ‖Z‖², g = log(½ + ½‖X‖²), mu = 0, sigma = √2·I,
+    x0 = 0. The exact u(t,x) = −log E[exp(−g(x + √(2(T−t))·W))] is the
+    Monte-Carlo oracle ``numerics.hjb_exact_mc``."""
+
+    D: int = 100
+    name: str = "HamiltonJacobiBellman"
+
+    @property
+    def dim(self) -> int:
+        return self.D
+
+    @property
+    def x0(self) -> Tensor:
+        return torch.zeros((self.D,), dtype=torch.float32)
+
+    def mu(self, t, X, Y, Z):
+        return torch.zeros_like(X)
+
+    def sigma(self, t, X, Y):
+        return torch.full_like(X, math.sqrt(2.0))
+
+    def phi(self, t, X, Y, Z):
+        return torch.sum(Z**2, dim=-1, keepdim=True)
+
+    def g(self, X):
+        return torch.log(0.5 + 0.5 * torch.sum(X**2, dim=-1, keepdim=True))

@@ -30,7 +30,7 @@ from dnnpde_tpu_torch.pde.base import PDEProblem
 
 Tensor = torch.Tensor
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, item 1: the deep-BSDE loss beyond the global objective)"
+_LATER = "is not ported yet (ROADMAP.md Queue 1, item 5: the deep-BSDE loss beyond the global objective)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,11 +98,12 @@ def make_net_u(net: torch.nn.Module, transform: Optional[Callable] = None) -> Ca
     return net_u
 
 
-def _terminal_penalty(problem: PDEProblem, X_N: Tensor, Y_N: Tensor, Z_N: Tensor) -> Tensor:
-    """(Y_N − g)² + ‖(Z_N − Dg)·mask‖² summed over the batch."""
+def _terminal_penalty(problem: PDEProblem, X_N: Tensor, Y_N: Tensor, Z_N: Tensor,
+                      mask: Optional[Tensor] = None) -> Tensor:
+    """(Y_N − g)² + ‖(Z_N − Dg)·mask‖² summed over the batch; ``mask`` is
+    ``problem.z_penalty_mask`` on X_N's device."""
     dy2 = (Y_N - problem.g(X_N)) ** 2
     dz = Z_N - problem.Dg(X_N)
-    mask = problem.z_penalty_mask
     if mask is not None:
         dz = dz * mask
     dz2 = torch.sum(dz**2, dim=-1, keepdim=True)
@@ -131,10 +132,11 @@ def _bind_net_u(problem: PDEProblem, net, config: SolverConfig) -> Callable:
     the weights once here, not at each of the N+1 evaluations."""
     if not config.fused_net_u:
         return lambda module: make_net_u(module, transform=problem.transform_u)
+    from dnnpde_tpu_torch.nets.networks import MLP
     from dnnpde_tpu_torch.ops.fused_net_u import check_fused, fused_u_z
     from dnnpde_tpu_torch.params import extract_mlp_params
 
-    if problem.has_output_transform:
+    if problem.has_output_transform or not isinstance(net, MLP):
         raise ValueError("fused_net_u supports plain MLPs without output transform")
     backend = "torch" if config.fused_net_u is True else str(config.fused_net_u)
     act = check_fused(net.activation, backend)
@@ -169,6 +171,14 @@ def make_loss_fn(
     """
     _check_config(problem, config)
     bind = _bind_net_u(problem, net, config)
+    masks: dict = {}  # z_penalty_mask by device, moved there at the first (eager) call
+
+    def z_mask(device):
+        if problem.z_penalty_mask is None:
+            return None
+        if device not in masks:
+            masks[device] = problem.z_penalty_mask.to(device)
+        return masks[device]
 
     def em_step(t0, X0, Y0, Z0, t1, dW):
         """Euler–Maruyama X-step + BSDE Ỹ-step from a known (Y, Z) at t0."""
@@ -215,7 +225,7 @@ def make_loss_fn(
         loss = torch.sum((YN - Ytilde) ** 2)
         if residuals:
             loss = torch.stack(residuals).sum() + loss
-        loss = loss + _terminal_penalty(problem, X, YN, ZN)
+        loss = loss + _terminal_penalty(problem, X, YN, ZN, z_mask(X.device))
         if not paths:
             return RolloutResult(loss, None, None, Y0[0, 0])
         Y = torch.stack(Ys + [YN], dim=1)

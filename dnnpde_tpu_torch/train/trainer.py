@@ -138,7 +138,8 @@ class Trainer:
       M: number of simulated paths (batch).
       N: number of time steps.
       layers: net widths incl. input/output; default ``[D+1, 256×4, 1]``.
-      mode / activation: network selection strings ("FC" only so far).
+      mode / activation: network selection strings ("FC", "Naisnet",
+        "Resnet", "Verlet"; "Sine", "ReLU", "Tanh").
       Mm: refinement base; if set, the reference's coarse-to-fine N schedule
         (:class:`TimeStepRefinement`) is applied, one captured iteration per
         distinct N.

@@ -508,3 +508,49 @@ def test_a_failed_capture_raises(cuda_device):
     torch.cuda.synchronize()
     chunk = next(iter(tr._chunk_cache.values()))
     assert chunk.warm and chunk.graph is None  # the warm-up ran; nothing replays eagerly
+
+
+# ---- the harness's nets and problems on the card -----------------------------
+
+
+def _harness_trainer(device, case, **kw):
+    from dnnpde_tpu_torch.pde import HamiltonJacobiBellman, HestonPDE
+    from dnnpde_tpu_torch.train import Trainer
+
+    if case == "naisnet-hjb":
+        prob, mode, act = HamiltonJacobiBellman(D=CHUNK_D), "Naisnet", "ReLU"
+    elif case == "verlet-hjb":
+        prob, mode, act = HamiltonJacobiBellman(D=CHUNK_D), "Verlet", "Sine"
+    else:
+        prob, mode, act = HestonPDE(clamp_smoothing=case.split("-", 1)[1]), "FC", "Sine"
+    layers = [prob.dim + 1, 64, 64, 64, 1]
+    return Trainer(prob, M=CHUNK_M, N=CHUNK_N, layers=layers, mode=mode, activation=act,
+                   seed=4, device=device, ema_decay=0.9, **kw)
+
+
+@pytest.mark.parametrize("case", ["naisnet-hjb", "verlet-hjb", "heston-bs", "heston-hard"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_harness_trainers_captured_chunk_equals_eager_steps(cuda_device, case, remat):
+    from dnnpde_tpu_torch.solver import SolverConfig
+
+    k = 8
+    kw = dict(solver_config=SolverConfig(remat=remat), nan_guard=True)
+    captured, eager = (_harness_trainer(cuda_device, case, **kw) for _ in range(2))
+    captured.train(k, 1e-3, log_every=k, verbose=False)
+    losses, y0s = _eager_steps(eager, k)
+    got_losses, got_y0s = _last_chunk(captured, k)
+    assert bool(torch.isfinite(losses).all())
+    assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
+    _assert_same_state(captured, eager)
+
+
+@pytest.mark.parametrize("row", ["bsb_100d", "call_1d", "basket_100d", "hjb_100d", "heston"])
+def test_harness_rows_run_on_the_card(cuda_device, row):
+    """Each row at a short legacy budget on cuda:0: finite Y0 near the
+    oracle's scale, positive rates."""
+    from dnnpde_tpu_torch.bench import harness
+
+    res = harness.ALL_BENCHES[row](iters=(100, 100))
+    assert np.isfinite(res.learned_y0) and np.isfinite(res.oracle_y0) and res.oracle_y0 > 0
+    assert res.iters_per_sec > 0 and res.wall_time_s > 0
+    assert res.config["phases"][0][0] == 100

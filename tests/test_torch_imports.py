@@ -50,7 +50,8 @@ def test_port_sources_found():
         "solver/bsde", "sim/correlation", "train/__init__", "train/optimizers", "train/trainer",
         "ops/fused_net_u", "ops/mlp_kernel", "ops/path_kernel", "sim/euler_maruyama",
         "numerics/black_scholes", "numerics/monte_carlo", "evals/metrics", "evals/greeks",
-        "evals/predictions")} <= names
+        "evals/predictions", "pde/heston", "numerics/heston", "numerics/quadrature",
+        "numerics/crank_nicolson", "bench/__init__", "bench/__main__", "bench/harness")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -156,3 +157,38 @@ def test_monte_carlo_runs_on_the_generators_device(no_cuda):
     p, se = basket_call_mc(gen, [1.0, 1.0], 1.0, 1.0, 0.05, 0.2, num_paths=64)
     assert p.device.type == se.device.type == "cpu"
     assert hjb_exact_mc(gen, 0.5, [0.0, 0.0], num_samples=16).device.type == "cpu"
+
+
+def test_harness_slice_entry_points_without_cuda_raise(no_cuda):
+    """The residual nets, the HJB and Heston problems' trainers and the
+    Heston oracles resolve ``device=None`` to the card and raise without
+    one; the Heston Monte Carlo runs on its generator's device."""
+    from dnnpde_tpu_torch.nets import build_network
+    from dnnpde_tpu_torch.numerics import (
+        crank_nicolson_heston,
+        gauss_legendre,
+        heston_call_price,
+        heston_mc_price,
+        heston_price_surface,
+    )
+    from dnnpde_tpu_torch.pde import HamiltonJacobiBellman, HestonPDE
+    from dnnpde_tpu_torch.train import Trainer
+
+    calls = [
+        lambda: build_network("Naisnet", [3, 8, 8, 1]),
+        lambda: build_network("Verlet", [3, 8, 8, 1]),
+        lambda: heston_call_price(1.0, 0.2),
+        lambda: heston_price_surface([0.9, 1.0], [0.2]),
+        lambda: crank_nicolson_heston(1.0),
+        lambda: gauss_legendre(lambda x: x, 0.0, 1.0),
+        lambda: Trainer(HestonPDE(), M=4, N=2, layers=[3, 8, 1]),
+        lambda: Trainer(HamiltonJacobiBellman(D=2), M=4, N=2, layers=[3, 8, 8, 1],
+                        mode="Naisnet"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    price, se = heston_mc_price(torch.Generator().manual_seed(0), 1.0, num_paths=64,
+                                num_steps=4)
+    assert price.device.type == se.device.type == "cpu"
+

@@ -106,6 +106,6 @@ def test_build_network_modes():
     assert isinstance(net, MLP)
     assert isinstance(build_network("mlp", LAYERS, device="cpu"), MLP)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_network("Naisnet", LAYERS, device="cpu")
+        build_network("SDEnet", LAYERS, device="cpu")
     with pytest.raises(ValueError, match="Unknown network mode"):
         build_network("transformer", LAYERS, device="cpu")

@@ -125,8 +125,6 @@ def test_what_is_not_ported_raises(tmp_path):
     from dnnpde_tpu_torch.nets import MLP
 
     net = MLP(LAYERS, "sine", device="cpu")
-    with pytest.raises(NotImplementedError, match="transform"):
-        save_solution(str(tmp_path / "a.pt"), net, D, transform=lambda t, x, u: u)
     with pytest.raises(NotImplementedError, match="stochastic"):
         save_solution(str(tmp_path / "a.pt"), net, D, stochastic=True)
     with pytest.raises(ValueError, match="do not map"):
@@ -163,3 +161,76 @@ def test_bsb_slice_end_to_end(tmp_path):
     assert Y.shape == (M, N + 1) and np.isfinite(Y).all()
     se = np.sqrt(Y.var(axis=0) / M + Y_ref.var(axis=0) / M)
     assert np.all(np.abs(Y.mean(axis=0) - Y_ref.mean(axis=0)) <= 4 * se + 1e-6)
+
+
+SERVED_CASES = {
+    # name: (mode, activation, problem factory in each package)
+    "naisnet-hjb": ("Naisnet", "ReLU", "HamiltonJacobiBellman", dict(D=3)),
+    "heston-bs": ("FC", "Sine", "HestonPDE", {}),
+    "heston-hard-naisnet": ("Naisnet", "Sine", "HestonPDE", dict(clamp_smoothing="hard")),
+    "resnet-basket": ("Resnet", "Tanh", "BasketCallOption", dict(D=3)),
+    "verlet-heston-anchor": ("Verlet", "Sine", "HestonPDE", dict(clamp_smoothing="anchor")),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVED_CASES))
+def test_transforms_and_residual_nets_match_jax_served(tmp_path, case):
+    """JAX-made weights behind the problem's output transform: the port's
+    artifact (net + problem rebuilt on load) against the JAX artifact
+    (``export_solution(transform=problem.transform_u)``), u and Z within
+    1e-5 of max|·| (f32 on both sides)."""
+    import dnnpde_tpu.pde as jax_pde
+
+    import dnnpde_tpu_torch.pde as pde
+
+    mode, act, cls, kw = SERVED_CASES[case]
+    jprob, prob = getattr(jax_pde, cls)(**kw), getattr(pde, cls)(**kw)
+    layers = [prob.dim + 1, 16, 16, 16, 1]
+    net = jax_build_network(mode, layers, act)
+    params = net.init(jax.random.PRNGKey(3), jnp.ones((1, layers[0])))
+    transform = jprob.transform_u if jprob.has_output_transform else None
+    jax_sol = JaxServed(jax.export.deserialize(
+        export_solution(net, params, prob.dim, transform=transform)))
+    port = from_flax_params(jax.tree.map(np.asarray, params), act, mode=mode, device="cpu")
+    path = tmp_path / "s.pt"
+    save_solution(str(path), port, prob.dim,
+                  transform=prob.transform_u if prob.has_output_transform else None)
+    sol = load_solution(str(path), device="cpu")
+    assert sol.mode == mode and (sol.problem == prob) == prob.has_output_transform
+    rng = np.random.default_rng(5)
+    t = rng.uniform(size=(33, 1)).astype(np.float32)
+    t[:3] = 1.0  # the heads' terminal values
+    X = np.abs(1.0 + 0.3 * rng.normal(size=(33, prob.dim))).astype(np.float32)
+    if cls == "HestonPDE":
+        X[:, 1] = rng.uniform(0.01, 0.4, size=33)
+    u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+    u, Z = sol.u_and_grad(t, X)
+    assert u.dtype == np.float32 and u.shape == (33, 1) and Z.shape == (33, prob.dim)
+    for a, r in ((u, u_ref), (Z, Z_ref)):
+        assert np.abs(a - r).max() <= 1e-5 * np.abs(r).max()
+
+
+def test_save_solution_from_a_trainer_and_its_ema(tmp_path):
+    from dnnpde_tpu_torch.pde import HestonPDE
+    from dnnpde_tpu_torch.solver import make_net_u
+    from dnnpde_tpu_torch.train import Trainer
+
+    tr = Trainer(HestonPDE(), M=8, N=4, layers=[3, 16, 16, 1], mode="Naisnet", device="cpu",
+                 ema_decay=0.5)
+    tr.train(6, 1e-2, log_every=3, verbose=False)
+    t = np.array([[0.0], [0.5], [1.0]], np.float32)
+    X = np.array([[1.0, 0.2], [0.9, 0.1], [1.2, 0.3]], np.float32)
+    for use_ema, net in ((False, tr.params), (True, tr.ema_params)):
+        path = tmp_path / f"t{use_ema}.pt"
+        save_solution(str(path), tr, use_ema=use_ema)
+        u, Z = load_solution(str(path), device="cpu").u_and_grad(t, X)
+        with torch.no_grad():
+            u_ref, Z_ref = make_net_u(net, tr.problem.transform_u)(torch.from_numpy(t),
+                                                                   torch.from_numpy(X))
+        np.testing.assert_array_equal(u, u_ref.numpy())
+        np.testing.assert_array_equal(Z, Z_ref.numpy())
+    assert not np.array_equal(*(load_solution(str(tmp_path / f"t{e}.pt"), device="cpu")
+                                .u(t, X) for e in (False, True)))
+    with pytest.raises(ValueError, match="transform_u"):
+        save_solution(str(tmp_path / "b.pt"), tr.params, 2, transform=lambda t, x, u: u)
+
