@@ -1,5 +1,5 @@
-"""Evaluation layer ported so far: greeks, error metrics and prediction
-sampling. The rest of the JAX package's ``evals`` is listed in ROADMAP.md,
+"""Evaluation layer ported so far: greeks, error metrics, prediction
+sampling and the policy value of optimal-stopping nets. The rest of the JAX package's ``evals`` is listed in ROADMAP.md,
 Queue 1."""
 
 from dnnpde_tpu_torch.evals.greeks import compute_greeks, heston_greeks, learned_price_surface
@@ -8,6 +8,11 @@ from dnnpde_tpu_torch.evals.metrics import (
     error_stats,
     relative_l2_error,
     squared_errors,
+)
+from dnnpde_tpu_torch.evals.policy_value import (
+    PolicyValue,
+    policy_value,
+    policy_value_from_trainer,
 )
 from dnnpde_tpu_torch.evals.predictions import PredictionGenerator, PredictionResult
 
@@ -21,4 +26,7 @@ __all__ = [
     "compute_greeks",
     "heston_greeks",
     "learned_price_surface",
+    "PolicyValue",
+    "policy_value",
+    "policy_value_from_trainer",
 ]

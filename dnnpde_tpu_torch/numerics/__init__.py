@@ -1,7 +1,9 @@
 """Classical numerics: the ground-truth oracles ported so far (Black–Scholes
-closed forms, the Monte-Carlo pricers, the Heston closed form, its Milstein
-pricers and Crank–Nicolson solver, and Gauss–Legendre quadrature). The rest
-of the JAX package's ``numerics`` is listed in ROADMAP.md, Queue 1."""
+closed forms and vega, the Monte-Carlo pricers, the Heston closed form, its
+Milstein pricers and Crank–Nicolson solver, Gauss–Legendre quadrature, and
+the optimal-stopping oracles: the CRR tree and Longstaff–Schwartz with the
+linear-driver probe). The rest of the JAX package's ``numerics`` is listed
+in ROADMAP.md, Queue 1."""
 
 from dnnpde_tpu_torch.numerics.black_scholes import (
     basket_analytical_approx,
@@ -12,12 +14,14 @@ from dnnpde_tpu_torch.numerics.black_scholes import (
     geometric_asian_call,
     lookback_call_floating,
 )
+from dnnpde_tpu_torch.numerics.binomial import crr_binomial
 from dnnpde_tpu_torch.numerics.crank_nicolson import (
     CNGrid,
     bilinear_interpolate,
     cn_delta_gamma,
     crank_nicolson_heston,
 )
+from dnnpde_tpu_torch.numerics.discrete_bsde import probe_linear_driver
 from dnnpde_tpu_torch.numerics.heston import (
     HestonParams,
     heston_call_price,
@@ -27,6 +31,8 @@ from dnnpde_tpu_torch.numerics.heston import (
     heston_mc_price_ii,
     heston_price_surface,
 )
+from dnnpde_tpu_torch.numerics.implied_vol import bs_vega
+from dnnpde_tpu_torch.numerics.longstaff_schwartz import LSMCValue, basis_size, lsmc_value
 from dnnpde_tpu_torch.numerics.monte_carlo import (
     basket_call_mc,
     basket_delta_mc,
@@ -59,4 +65,10 @@ __all__ = [
     "basket_price_paths_mc",
     "hjb_exact_mc",
     "gauss_legendre",
+    "bs_vega",
+    "crr_binomial",
+    "probe_linear_driver",
+    "LSMCValue",
+    "basis_size",
+    "lsmc_value",
 ]

@@ -1,7 +1,9 @@
 from dnnpde_tpu_torch.pde.base import PDEProblem
-from dnnpde_tpu_torch.pde.heston import HestonPDE
+from dnnpde_tpu_torch.pde.heston import HestonAmericanPut, HestonPDE
 from dnnpde_tpu_torch.pde.problems import (
+    AmericanPutOption,
     BasketCallOption,
+    BermudanMaxCall,
     BlackScholesBarenblatt,
     BSPDETestCase,
     CallOption1D,
@@ -18,4 +20,7 @@ __all__ = [
     "BSPDETestCase",
     "HamiltonJacobiBellman",
     "HestonPDE",
+    "AmericanPutOption",
+    "BermudanMaxCall",
+    "HestonAmericanPut",
 ]

@@ -80,8 +80,28 @@ class PDEProblem:
 
     @property
     def early_exercise(self) -> bool:
-        """True for optimal-stopping problems (none ported yet)."""
+        """True for optimal-stopping (American/Bermudan) problems. The local
+        objective then clamps the per-step regression target at the payoff
+        at every exercise date (the Snell-envelope recursion
+        V_k = max(g(X_k), E_k[V_{k+1}] − φΔt)), so the net learns the
+        continuation value and the served value is :meth:`value_u`.
+        Requires ``objective="local"``."""
         return False
+
+    @property
+    def exercise_every(self) -> int:
+        """Exercise-date spacing in solver steps for early-exercise
+        problems: exercise is allowed at grid indices k, 2k, …, N (maturity
+        always included; immediate exercise at t = 0 is the outer
+        ``max(g(x0), ·)`` read). 1 (default) = a date at every step. The
+        solver requires N % exercise_every == 0."""
+        return 1
+
+    def value_u(self, X: Tensor, u: Tensor) -> Tensor:
+        """Served value given the net's output u at (t, X): the identity for
+        European-style problems; the Snell read max(g(X), u) for
+        early-exercise problems (u is the learned continuation)."""
+        return torch.maximum(self.g(X), u) if self.early_exercise else u
 
     @property
     def x0(self) -> Tensor:
@@ -149,3 +169,7 @@ class PDEProblem:
         if self.sigma_kind == "diag":
             return sig * dW
         return torch.einsum("mij,mj->mi", sig, dW)
+
+    def z_sigma_dw(self, Z: Tensor, sig: Tensor, dW: Tensor) -> Tensor:
+        """BSDE martingale term Zᵀ(σ·ΔW) summed over dims, (M, 1)."""
+        return torch.sum(Z * self.sigma_dw(sig, dW), dim=-1, keepdim=True)

@@ -24,7 +24,8 @@ parametrization (``transform_u``) is selected by ``clamp_output`` and
 - ``clamp_output=False``: the plain output.
 
 The JAX module's docstrings give the measured trade-offs of each mode.
-``HestonAmericanPut`` needs the local objective and is not ported yet.
+:class:`HestonAmericanPut` is the American (Bermudan-N) put under the same
+dynamics; it needs the local objective.
 """
 
 from __future__ import annotations
@@ -155,3 +156,48 @@ class HestonPDE(PDEProblem):
             z = S - self.strike  # z·sigmoid(αz): stable where z/(1 + e^{−αz}) overflows
             return z * torch.sigmoid(self.smoothing_alpha * z)
         raise ValueError("Invalid payoff_type; choose 'discontinuous' or 'continuous'.")
+
+
+@dataclasses.dataclass(frozen=True)
+class HestonAmericanPut(HestonPDE):
+    """American (Bermudan-N) put under Heston dynamics: optimal stopping
+    with stochastic volatility. No binomial tree exists for it; its oracle
+    is ``numerics.lsmc_value`` on the solver's own Euler chain.
+
+    Inherits the Cholesky diffusion and the "bs" machinery of
+    :class:`HestonPDE`, with the payoff a put and the head the BS put by
+    put–call parity on the same call,
+
+        u_cont = BS_put(S, K, τ, √v) + √(τ/T)·raw,
+
+    exact at τ = 0 (the net learns the stochastic-vol correction and the
+    early-exercise premium, of either sign). Only the "bs" head and the
+    plain output (``clamp_output=False``) are allowed. Requires
+    ``Trainer(objective="local")``; the served value is ``max(g, u)``
+    (:meth:`PDEProblem.value_u`).
+    """
+
+    name: str = "HestonAmericanPut"
+
+    @property
+    def early_exercise(self) -> bool:
+        return True
+
+    def g(self, X):
+        S = X[..., 0:1]
+        return torch.clamp(self.strike - S, min=0.0)
+
+    def transform_u(self, t: Tensor, X: Tensor, u: Tensor) -> Tensor:
+        if not self.clamp_output or self.clamp_smoothing != "bs":
+            if self.clamp_output:
+                raise ValueError(
+                    "HestonAmericanPut supports clamp_output=False (plain) or the default bs "
+                    "head only"
+                )
+            return u
+        S, v = X[..., 0:1], X[..., 1:2]
+        tau = torch.clamp(self.T - t, min=0.0)
+        sig = torch.sqrt(torch.clamp(v, min=1e-8))
+        call = black_scholes_call(S, self.strike, tau, self.r, sig, cdf=self.bs_cdf)
+        put = call - S + self.strike * torch.exp(-self.r * tau)
+        return put + torch.sqrt(tau / self.T) * u

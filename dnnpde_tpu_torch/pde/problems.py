@@ -1,6 +1,7 @@
 """The PDE problems ported so far: the flagship Black–Scholes–Barenblatt,
-the GBM-type calls and baskets (diagonal dynamics μ = μ_c·X, σ = σ̄·diag(X))
-and the Hamilton–Jacobi–Bellman equation. The Heston problem is in
+the GBM-type calls and baskets (diagonal dynamics μ = μ_c·X, σ = σ̄·diag(X)),
+the Hamilton–Jacobi–Bellman equation, and the optimal-stopping problems
+(the American put and the Bermudan max-call). The Heston problems are in
 ``pde/heston.py``.
 
 Strike conventions as in the JAX package: K = 1.0·D for the 1D/nD calls
@@ -14,7 +15,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from dnnpde_tpu_torch.numerics.black_scholes import black_scholes_call
 from dnnpde_tpu_torch.pde.base import PDEProblem, Tensor
 
 
@@ -269,3 +272,181 @@ class HamiltonJacobiBellman(PDEProblem):
 
     def g(self, X):
         return torch.log(0.5 + 0.5 * torch.sum(X**2, dim=-1, keepdim=True))
+
+
+@dataclasses.dataclass(frozen=True)
+class AmericanPutOption(PDEProblem):
+    """American (Bermudan-N) put under Black–Scholes dynamics, an
+    optimal-stopping problem.
+
+    phi = r·Y, g = max(K − ΣX, 0), mu = r·X, sigma = σ̄·diag(X). Under the
+    local objective the per-step regression target is clamped at the
+    payoff, so the net learns the continuation value and the served value is
+    max(g, u) (:meth:`PDEProblem.value_u`). With N solver steps the learned
+    price is the Bermudan-N value; score it against
+    ``numerics.crr_binomial(..., exercise_every=n_steps // N)``. Requires
+    ``Trainer(objective="local")``.
+
+    ``bs_head`` (D = 1 only, the default): u = euro_put(S, τ) +
+    √(τ/T)·softplus(raw + head_shift), the closed-form European put (by
+    put–call parity on the tanh-Φ call) plus a non-negative early-exercise
+    premium; exact at τ = 0, so both terminal penalties vanish.
+    """
+
+    D: int = 1
+    r: float = 0.06
+    sigma_bar: float = 0.2
+    strike: Optional[float] = None  # default 1.0 * D
+    bs_head: bool = True
+    head_shift: float = -3.0
+    name: str = "AmericanPut"
+
+    @property
+    def dim(self) -> int:
+        return self.D
+
+    @property
+    def early_exercise(self) -> bool:
+        return True
+
+    @property
+    def has_output_transform(self) -> bool:
+        return self.bs_head
+
+    def transform_u(self, t, X, u):
+        if not self.bs_head:
+            return super().transform_u(t, X, u)
+        if self.D != 1:
+            raise ValueError("bs_head supports D=1 only")
+        S = X[..., 0:1]
+        tau = torch.clamp(self.T - t, min=0.0)
+        euro = (black_scholes_call(S, self.K, tau, self.r, self.sigma_bar, cdf="tanh")
+                - S + self.K * torch.exp(-self.r * tau))
+        premium = torch.sqrt(tau / self.T) * F.softplus(u + self.head_shift)
+        return euro + premium
+
+    @property
+    def K(self) -> float:
+        return 1.0 * self.D if self.strike is None else self.strike
+
+    @property
+    def x0(self) -> Tensor:
+        return torch.ones((self.D,), dtype=torch.float32)
+
+    def mu(self, t, X, Y, Z):
+        return self.r * X
+
+    def sigma(self, t, X, Y):
+        return self.sigma_bar * X
+
+    def phi(self, t, X, Y, Z):
+        return self.r * Y
+
+    def g(self, X):
+        return torch.clamp(self.K - torch.sum(X, dim=-1, keepdim=True), min=0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class BermudanMaxCall(PDEProblem):
+    """Bermudan max-call on d independent dividend-paying GBM assets
+    (Broadie & Glasserman 1997; Andersen & Broadie 2004): K = 100, r = 5 %,
+    dividend δ = 10 %, σ = 20 %, T = 3, nine equally spaced exercise dates.
+    Published values: d = 2, S0 = 100: 13.902; d = 5: 26.15.
+
+    The state is the log-prices x_i = ln S_i, so μ = (r − δ − σ²/2)·1 and
+    σ = σ̄·1 are constant and the Euler step is the exact GBM transition;
+    the driver φ = r̂·Y with r̂ = (e^{rΔt} − 1)/Δt makes the per-step
+    discount (1 + r̂Δt)⁻¹ exactly e^{−rΔt}. The solver grid ``N_steps``
+    is a multiple of ``n_exercise`` and :attr:`exercise_every` puts the
+    Snell clamp on the contract's dates only.
+
+    Payoff g(x) = max(max_i e^{x_i} − K, 0). The head (default) is
+    max_i BSCall(S_i, τ; δ), a lower bound on the continuation value, plus
+    √(τ/T)·softplus(raw + head_shift): exact at τ = 0.
+
+    Requires ``Trainer(objective="local")``; grade against
+    ``numerics.lsmc_value(problem, N, basis="sorted")`` and the published
+    values.
+    """
+
+    D: int = 2
+    S0: float = 100.0
+    strike: float = 100.0
+    r: float = 0.05
+    delta: float = 0.10
+    sigma_bar: float = 0.2
+    T: float = 3.0
+    n_exercise: int = 9
+    N_steps: int = 45  # solver grid; must be a multiple of n_exercise
+    head: bool = True
+    head_shift: float = -3.0
+    name: str = "BermudanMaxCall"
+
+    def __post_init__(self):
+        if self.N_steps % self.n_exercise:
+            raise ValueError(
+                f"N_steps={self.N_steps} must be a multiple of n_exercise={self.n_exercise}"
+            )
+
+    @property
+    def dim(self) -> int:
+        return self.D
+
+    @property
+    def K(self) -> float:
+        return self.strike
+
+    @property
+    def early_exercise(self) -> bool:
+        return True
+
+    @property
+    def exercise_every(self) -> int:
+        return self.N_steps // self.n_exercise
+
+    @property
+    def N_samples(self) -> int:
+        # r̂ depends on Δt = T / N_steps, so the Trainer's N must match
+        return self.N_steps
+
+    @property
+    def dt(self) -> float:
+        return self.T / self.N_steps
+
+    @property
+    def r_hat(self) -> float:
+        """Per-step driver rate making (1 + r̂Δt)⁻¹ = e^{−rΔt} exact."""
+        return float(math.expm1(self.r * self.dt) / self.dt)
+
+    @property
+    def x0(self) -> Tensor:
+        return torch.log(torch.full((self.D,), self.S0, dtype=torch.float32))
+
+    def mu(self, t, X, Y, Z):
+        return torch.full_like(X, self.r - self.delta - 0.5 * self.sigma_bar**2)
+
+    def sigma(self, t, X, Y):
+        return torch.full_like(X, self.sigma_bar)
+
+    def phi(self, t, X, Y, Z):
+        return self.r_hat * Y
+
+    def g(self, X):
+        mx = torch.amax(torch.exp(X), dim=-1, keepdim=True)
+        return torch.clamp(mx - self.K, min=0.0)
+
+    @property
+    def has_output_transform(self) -> bool:
+        return self.head
+
+    def transform_u(self, t, X, u):
+        if not self.head:
+            return u
+        S = torch.exp(X)
+        tau = torch.clamp(self.T - t, min=0.0)
+        base = torch.amax(
+            black_scholes_call(S, self.K, tau, self.r, self.sigma_bar, q=self.delta, cdf="tanh"),
+            dim=-1, keepdim=True,
+        )
+        premium = torch.sqrt(tau / self.T) * F.softplus(u + self.head_shift)
+        return base + premium

@@ -35,3 +35,21 @@ def device_of(*xs, device=None) -> torch.device:
             if isinstance(x, torch.Tensor):
                 return x.device
     return default_device(device)
+
+
+class OnDevice:
+    """A constant CPU tensor (or None) with one copy per device, made at the
+    first request for that device. The first request comes from an eager
+    call, so that a training iteration captured into a CUDA graph later
+    reuses the copy and holds no host-to-device copy."""
+
+    def __init__(self, value):
+        self.value = value
+        self._by_device: dict = {}
+
+    def on(self, device):
+        if self.value is None:
+            return None
+        if device not in self._by_device:
+            self._by_device[device] = self.value.to(device)
+        return self._by_device[device]

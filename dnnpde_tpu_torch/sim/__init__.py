@@ -4,6 +4,7 @@ from dnnpde_tpu_torch.sim.brownian import (
     time_grid,
     time_major_batch,
 )
+from dnnpde_tpu_torch.sim.x0_samplers import X0Sampler, gaussian_x0, lognormal_x0
 from dnnpde_tpu_torch.sim.euler_maruyama import euler_maruyama, gbm_paths
 from dnnpde_tpu_torch.sim.correlation import (
     CORRELATION_TYPES,
@@ -23,4 +24,7 @@ __all__ = [
     "make_positive_definite",
     "euler_maruyama",
     "gbm_paths",
+    "X0Sampler",
+    "gaussian_x0",
+    "lognormal_x0",
 ]

@@ -1,5 +1,5 @@
-"""Deep-BSDE objective of the PyTorch port: rollout + BSDE residual + terminal
-penalties (global objective), the counterpart of ``dnnpde_tpu/solver/bsde.py``.
+"""Deep-BSDE objective of the PyTorch port: rollout + BSDE residuals +
+terminal penalties, the counterpart of ``dnnpde_tpu/solver/bsde.py``.
 
 The JAX package runs the rollout as one ``lax.scan``; here it is a Python
 loop over the N steps, since PyTorch runs eagerly. The rest follows the
@@ -9,12 +9,18 @@ reference:
   the fused path of ``ops/fused_net_u.py``).
 - Increments, not cumulated paths, are the input: ``dWs`` (N, M, D).
 - The loop carry is slim, (t, X, Ỹ): the net is evaluated at the START of
-  each step and the BSDE one-step prediction Ỹ rides the carry.
+  each step and the BSDE one-step prediction Ỹ rides the carry. Under
+  Z-matching it widens by the previous step's (σᵀZ, base, ΔW, Δt).
 - Step 0 is peeled out of the loop, so Y0 comes from that evaluation.
 
-Loss (reference semantics, summed — not averaged — over the batch):
+Loss of the global objective (reference semantics, summed — not averaged —
+over the batch):
   Σ_n Σ_m (Y_{n+1} − Ỹ_{n+1})²  +  Σ_m (Y_N − g(X_N))²  +  Σ_m ‖(Z_N − Dg(X_N))·mask‖²
-where Ỹ_{n+1} = Y_n + φ(t,X,Y,Z)·Δt + Zᵀσ(t,X,Y)ΔW.
+where Ỹ_{n+1} = Y_n + φ(t,X,Y,Z)·Δt + Zᵀσ(t,X,Y)ΔW. The local objective
+regresses each Ỹ_{n+1} onto a detached target instead: u(t_{n+1}, X_{n+1})
+of the same parameters (or of ``target_params``), clamped at the payoff on
+the exercise dates of an early-exercise problem, and g(X_N) at the last
+step (see :class:`SolverConfig`).
 """
 
 from __future__ import annotations
@@ -27,10 +33,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from dnnpde_tpu_torch.pde.base import PDEProblem
+from dnnpde_tpu_torch.runtime import OnDevice
 
 Tensor = torch.Tensor
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, item 5: the deep-BSDE loss beyond the global objective)"
+_LATER = "is not ported yet (ROADMAP.md Queue 1, item 5: stochastic nets, remat_policy, unroll)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +52,26 @@ class SolverConfig:
       differentiated by autograd; "cuda" = the fused kernel pair K1 + K2
       (sine; ``ops/fused_net_u.py::FusedMlpUZ``), the counterpart of JAX's
       "pallas". Plain MLPs without an output transform only.
+    objective: "global" (the reference's summed residual, gradients through
+      both sides of every residual) or "local" (backward induction: each
+      one-step prediction Ỹ_{n+1} regresses onto a detached target,
+      u(t_{n+1}, X_{n+1}) of the same parameters, or of the loss's
+      ``target_params``, and the payoff g(X_N) at the last step; early-
+      exercise problems clamp the target at the payoff on their exercise
+      dates, the Snell recursion, and require "local").
+    path_weight_fn: ``X0 -> (M,) or (M, 1)`` weights multiplying each
+      path's share of every residual and of both terminal penalties, used
+      as given (keep their mean near 1).
+    z_match_weight: λ of the Z-matching term of the local objective: each
+      step adds λ·Δt·Σ_j mask_j ((σᵀZ_θ)_j − C̃_j)² with
+      C̃_j = B·ΔW_j/Δt − corr_j, B = tgt_{n+1} − (tgt_n + φΔt) (detached)
+      and the zero-mean control corr_j = (sg[σᵀZ]·ΔW)·ΔW_j/Δt − sg[(σᵀZ)_j];
+      the JAX config's comments give the derivation.
+    z_match_mask: per-Brownian-component weights of that term (None = 1).
 
-    The other fields exist for parity with the JAX config; any value but
-    their default raises ``NotImplementedError`` in :func:`make_loss_fn`.
+    ``stochastic_net``, ``unroll`` and ``remat_policy`` exist for parity
+    with the JAX config; any value but their default raises
+    ``NotImplementedError`` in :func:`make_loss_fn`.
     """
 
     remat: bool = True
@@ -99,28 +123,42 @@ def make_net_u(net: torch.nn.Module, transform: Optional[Callable] = None) -> Ca
 
 
 def _terminal_penalty(problem: PDEProblem, X_N: Tensor, Y_N: Tensor, Z_N: Tensor,
-                      mask: Optional[Tensor] = None) -> Tensor:
+                      mask: Optional[Tensor] = None, w: Optional[Tensor] = None) -> Tensor:
     """(Y_N − g)² + ‖(Z_N − Dg)·mask‖² summed over the batch; ``mask`` is
-    ``problem.z_penalty_mask`` on X_N's device."""
+    ``problem.z_penalty_mask`` on X_N's device, ``w`` optional (M, 1) path
+    weights."""
     dy2 = (Y_N - problem.g(X_N)) ** 2
     dz = Z_N - problem.Dg(X_N)
     if mask is not None:
         dz = dz * mask
     dz2 = torch.sum(dz**2, dim=-1, keepdim=True)
+    if w is not None:
+        dy2 = w * dy2
+        dz2 = w * dz2
     return torch.sum(dy2) + torch.sum(dz2)
 
 
 def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
+    """The JAX package's config errors, then the options not ported yet."""
     if config.objective not in ("global", "local"):
         raise ValueError(f"objective must be 'global' or 'local', got {config.objective!r}")
+    local = config.objective == "local"
+    if float(config.z_match_weight or 0.0) and not local:
+        raise ValueError(
+            "z_match_weight requires objective='local': the z-matching "
+            "regression target is the detached per-step local target"
+        )
+    if problem.early_exercise and not local:
+        raise ValueError(
+            "early_exercise problems require objective='local': the "
+            "reflected-BSDE recursion V_k = max(g, E_k[V_{k+1}] - phi*dt) "
+            "clamps the per-step regression target at the payoff, and the "
+            "global summed-residual rollout has no per-step target to clamp"
+        )
     later = {
-        "objective='local'": config.objective == "local",
-        "z_match_weight": bool(config.z_match_weight) or config.z_match_mask is not None,
-        "path_weight_fn": config.path_weight_fn is not None,
         "stochastic_net": config.stochastic_net,
         "remat_policy": config.remat_policy is not None,
         "unroll": config.unroll != 1,
-        "early exercise": problem.early_exercise,
     }
     for name, used in later.items():
         if used:
@@ -156,7 +194,8 @@ def make_loss_fn(
     net: torch.nn.Module,
     config: SolverConfig = SolverConfig(),
 ) -> Callable:
-    """Build loss(net, ts, dWs, X0, paths=True) → RolloutResult.
+    """Build loss(net, ts, dWs, X0, paths=True, target_params=None) →
+    RolloutResult.
 
     ``net`` here gives the structure (``layers``, ``activation``); the
     returned function evaluates the module it is given (the JAX loss takes
@@ -168,17 +207,64 @@ def make_loss_fn(
         only the loss and Y0 (the JAX Trainer leaves the stacking to XLA's
         dead-code elimination), so it passes False and gets X = Y = None;
         the loss and its gradients are the same either way.
+      target_params: a module of the net's structure whose u (through
+        ``problem.transform_u``, no Z) gives the local objective's targets
+        in place of the trained net's own (e.g. the Trainer's EMA shadow
+        under ``objective="local_ema"``); it gets no gradient.
     """
     _check_config(problem, config)
     bind = _bind_net_u(problem, net, config)
-    masks: dict = {}  # z_penalty_mask by device, moved there at the first (eager) call
+    local = config.objective == "local"
+    early = problem.early_exercise
+    zmatch = float(config.z_match_weight or 0.0)
+    z_penalty_mask = OnDevice(problem.z_penalty_mask)
+    z_match_mask = OnDevice(
+        None if config.z_match_mask is None
+        else torch.tensor(config.z_match_mask, dtype=torch.float32))
 
-    def z_mask(device):
-        if problem.z_penalty_mask is None:
+    def u_target(target, t, X):
+        """u-only evaluation under the target parameters, detached."""
+        with torch.no_grad():
+            return problem.transform_u(t, X, target(torch.cat([t, X], dim=-1)))
+
+    def path_weights(X0):
+        if config.path_weight_fn is None:
             return None
-        if device not in masks:
-            masks[device] = problem.z_penalty_mask.to(device)
-        return masks[device]
+        w = torch.as_tensor(config.path_weight_fn(X0))
+        return w.reshape(X0.shape[0], 1)
+
+    def weighted_sum(vec, w):
+        """Σ_m w_m · vec_m for a per-path (M, 1) vector."""
+        return torch.sum(vec if w is None else w * vec)
+
+    def z_proj(t0, X0, Y0, Z0):
+        """(σᵀZ)_j, the net side of the Z-matching regression."""
+        sig = problem.sigma(t0, X0, Y0)
+        if problem.sigma_kind == "diag":
+            return sig * Z0
+        return torch.einsum("mij,mi->mj", sig, Z0)
+
+    def z_match_resid(zstate, tgt, w):
+        """λ·Δt·Σ_j mask_j (zA_j − C̃_j)² of the previous step, whose σᵀZ_θ
+        was zA, against this step's detached target ``tgt``."""
+        zA, zbase, dWp, dtp = zstate
+        B = tgt.detach() - zbase  # zbase is detached already
+        C = B * dWp / dtp
+        zA_d = zA.detach()
+        corr = torch.sum(zA_d * dWp, dim=-1, keepdim=True) * dWp / dtp - zA_d
+        r = (zA - C + corr) ** 2
+        mask = z_match_mask.on(r.device)
+        if mask is not None:
+            r = r * mask
+        per_path = torch.sum(r * dtp, dim=-1, keepdim=True)
+        return zmatch * weighted_sum(per_path, w)
+
+    def z_match_state(t0, X0, Y0, Z0, tgt, t1, dW):
+        """The next step's Z-matching payload: this step's σᵀZ_θ, the
+        detached base tgt + φΔt, and this step's (ΔW, Δt)."""
+        dt = t1 - t0
+        base = (tgt + problem.phi(t0, X0, Y0, Z0) * dt).detach()
+        return (z_proj(t0, X0, Y0, Z0), base, dW, dt)
 
     def em_step(t0, X0, Y0, Z0, t1, dW):
         """Euler–Maruyama X-step + BSDE Ỹ-step from a known (Y, Z) at t0."""
@@ -192,40 +278,77 @@ def make_loss_fn(
         )
         return X1, Y1_tilde
 
-    def step(net_u, t0, X0, Ytilde0, t1, dW):
-        """One rollout step from the slim carry: the residual of the net's
-        value at t0 against the carried prediction, then the next carry."""
+    def step(net_u, target, w, ex_flag, t0, X0, Ytilde0, t1, dW, *zstate):
+        """One rollout step from the carry (X, Ỹ[, Z-matching state]): the
+        residual at t0 against the carried prediction, then the next carry.
+        ``ex_flag`` (a Python bool) marks an exercise date."""
         Y0, Z0 = net_u(t0, X0)
-        residual = torch.sum((Y0 - Ytilde0) ** 2)
+        if local:
+            tgt = Y0 if target is None else u_target(target, t0, X0)
+            if early and ex_flag:
+                # the Snell clamp: the target is the better of exercising now
+                # and continuing; the net's u stays the continuation
+                tgt = torch.maximum(problem.g(X0), tgt)
+            resid = (tgt.detach() - Ytilde0) ** 2
+        else:
+            resid = (Y0 - Ytilde0) ** 2
+        residual = weighted_sum(resid, w)
+        if zmatch:
+            residual = residual + z_match_resid(zstate, tgt, w)
+            zstate = z_match_state(t0, X0, Y0, Z0, tgt, t1, dW)
         X1, Y1_tilde = em_step(t0, X0, Y0, Z0, t1, dW)
-        return X1, Y1_tilde, residual, Y0
+        return (X1, Y1_tilde, residual, Y0, *zstate)
 
     def loss_fn(module: torch.nn.Module, ts: Tensor, dWs: Tensor, X0: Tensor,
-                paths: bool = True) -> RolloutResult:
+                paths: bool = True, target_params: Optional[torch.nn.Module] = None
+                ) -> RolloutResult:
+        if target_params is not None and not local:
+            raise ValueError("target_params requires objective='local'")
+        N = dWs.shape[0]
+        k_ex = int(problem.exercise_every) if early else 1
+        if early and N % k_ex:
+            raise ValueError(
+                f"N={N} must be a multiple of {problem.name}'s exercise_every={k_ex} "
+                "(the maturity must be a date)"
+            )
         net_u = bind(module)
-        body = functools.partial(step, net_u)
-        if config.remat:
-            # the step draws no random numbers, so there is no RNG state to
-            # keep for the recompute (reading it is not allowed while a CUDA
-            # graph captures the training iteration)
-            body = functools.partial(checkpoint, body, use_reentrant=False,
-                                     preserve_rng_state=False)
+        w = path_weights(X0)
         # step 0, peeled: Y0 comes from this evaluation
         Y0, Z0 = net_u(ts[0], X0)
         X, Ytilde = em_step(ts[0], X0, Y0, Z0, ts[1], dWs[0])
+        zstate = ()
+        if zmatch:
+            tgt0 = Y0 if target_params is None else u_target(target_params, ts[0], X0)
+            zstate = z_match_state(ts[0], X0, Y0, Z0, tgt0, ts[1], dWs[0])
         Xs, Ys, residuals = [X0, X], [Y0], []
-        for n in range(1, dWs.shape[0]):
-            X, Ytilde, residual, Yn = body(ts[n], X, Ytilde, ts[n + 1], dWs[n])
+        for n in range(1, N):
+            # grid index n is an exercise date when k_ex divides it; the
+            # terminal index N carries no clamp (its target is g itself)
+            body = functools.partial(step, net_u, target_params, w, n % k_ex == 0)
+            if config.remat:
+                # the step draws no random numbers, so there is no RNG state to
+                # keep for the recompute (reading it is not allowed while a CUDA
+                # graph captures the training iteration)
+                body = functools.partial(checkpoint, body, use_reentrant=False,
+                                         preserve_rng_state=False)
+            X, Ytilde, residual, Yn, *zstate = body(ts[n], X, Ytilde, ts[n + 1], dWs[n], *zstate)
             if paths:
                 Xs.append(X)
                 Ys.append(Yn)
             residuals.append(residual)
         # the final evaluation closes the rollout: last residual + terminal penalties
         YN, ZN = net_u(ts[-1], X)
-        loss = torch.sum((YN - Ytilde) ** 2)
+        if local:
+            # the last step's target is the payoff itself
+            final_resid = (problem.g(X).detach() - Ytilde) ** 2
+        else:
+            final_resid = (YN - Ytilde) ** 2
+        loss = weighted_sum(final_resid, w)
         if residuals:
             loss = torch.stack(residuals).sum() + loss
-        loss = loss + _terminal_penalty(problem, X, YN, ZN, z_mask(X.device))
+        loss = loss + _terminal_penalty(problem, X, YN, ZN, z_penalty_mask.on(X.device), w)
+        if zmatch:
+            loss = loss + z_match_resid(zstate, problem.g(X), w)
         if not paths:
             return RolloutResult(loss, None, None, Y0[0, 0])
         Y = torch.stack(Ys + [YN], dim=1)

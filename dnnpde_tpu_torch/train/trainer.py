@@ -23,9 +23,13 @@ counterpart of ``dnnpde_tpu/train/trainer.py``.
 - Optional NaN guard: skip the whole update, optimizer state and EMA
   included, when the loss is non-finite.
 
-Not ported yet, and raising ``NotImplementedError``: sampled X0
-(``x0_sampler``), the local objective, ``path_weight_fn``, Z-matching,
-meshes, LBFGS and ``polish`` (ROADMAP.md Queue 1).
+- The objective is "global", "local" or "local_ema" (the local objective
+  with targets from the EMA shadow as it was before the iteration's
+  update); ``x0_sampler`` draws a fresh X0 batch every iteration from the
+  trainer's generator, after the increments.
+
+Not ported yet, and raising ``NotImplementedError``: meshes, LBFGS and
+``polish`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import dataclasses
 import hashlib
 import json
 import time
+import warnings
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -169,6 +174,19 @@ class Trainer:
         healthy log point and, when a chunk ends with Y0 pinned at the
         problem's clamp (or non-finite), roll back, re-seed the increments
         and retry, up to ``collapse_max_restarts`` times.
+      x0_sampler: ``(generator, M) -> (M, D)`` (``sim.lognormal_x0``,
+        ``sim.gaussian_x0``): draw a fresh batch of initial states every
+        iteration, after the increments, from the trainer's generator,
+        instead of broadcasting ``problem.x0``; under ``antithetic`` M/2
+        states are drawn and tiled over both halves, so each mirrored pair
+        shares its start. ``y0_log`` then logs Y0 of the first path.
+      objective: "global" (the reference's), "local" (backward-induction
+        residuals on detached same-parameter targets; required by
+        early-exercise problems) or "local_ema" (local, with the targets
+        from the EMA shadow before each iteration's update; needs
+        ``ema_decay``).
+      path_weight_fn, z_match_weight, z_match_mask: the loss options of
+        :class:`SolverConfig`, set on the given or the automatic config.
       device: None = the first CUDA card (raises without one); pass "cpu"
         to train on the CPU.
     """
@@ -203,14 +221,8 @@ class Trainer:
         z_match_mask=None,
         device=None,
     ):
-        later = {
-            "mesh": mesh is not None, "x0_sampler": x0_sampler is not None,
-            "objective": objective != "global", "path_weight_fn": path_weight_fn is not None,
-            "z_match_weight": bool(z_match_weight) or z_match_mask is not None,
-        }
-        for name, used in later.items():
-            if used:
-                raise NotImplementedError(f"Trainer({name}=...) {_LATER}")
+        if mesh is not None:
+            raise NotImplementedError(f"Trainer(mesh=...) {_LATER}")
         self.device = default_device(device)
         self.problem = problem
         self.M = int(M)
@@ -227,6 +239,7 @@ class Trainer:
         if antithetic and self.M % 2:
             raise ValueError(f"antithetic sampling requires even M, got {M}")
         self.antithetic = antithetic
+        self.x0_sampler = x0_sampler
         if ema_decay is not None and not (0.0 < ema_decay < 1.0):
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
         self.ema_decay = ema_decay
@@ -242,6 +255,19 @@ class Trainer:
         if self.layers[0] != problem.dim + 1:
             raise ValueError(f"layers[0] must be dim+1={problem.dim + 1}, got {self.layers[0]}")
         self.net_kwargs = dict(net_kwargs or {})
+        if objective not in ("global", "local", "local_ema"):
+            raise ValueError(
+                f"objective must be 'global', 'local' or 'local_ema', got {objective!r}")
+        self._local_ema = objective == "local_ema"
+        if self._local_ema and ema_decay is None:
+            raise ValueError("objective='local_ema' requires ema_decay")
+        if x0_sampler is not None and objective == "global":
+            warnings.warn(
+                "x0_sampler with objective='global' is systematically biased for surface "
+                "training (~2-volpt IV lift, results_r4/smile_objectives.log); use "
+                "objective='local'", UserWarning, stacklevel=2)
+        cfg_objective = "local" if self._local_ema else objective
+        z_mask = None if z_match_mask is None else tuple(z_match_mask)
         if solver_config is None:
             # Auto remat, the JAX package's rule: rematerialize once the
             # no-remat activation stash (N x M x width x 2 len(layers) x
@@ -250,7 +276,20 @@ class Trainer:
             dtype = self.net_kwargs.get("compute_dtype") or self.dtype
             itemsize = (getattr(torch, dtype) if isinstance(dtype, str) else dtype).itemsize
             act_bytes = self.N * self.M * max(self.layers) * (2 * len(self.layers)) * itemsize
-            solver_config = SolverConfig(remat=act_bytes > (1e9 if itemsize >= 4 else 6e9))
+            solver_config = SolverConfig(
+                remat=act_bytes > (1e9 if itemsize >= 4 else 6e9), objective=cfg_objective,
+                path_weight_fn=path_weight_fn, z_match_weight=float(z_match_weight),
+                z_match_mask=z_mask)
+        else:
+            # the JAX Trainer's rules: the arguments override the given config
+            # where they are set
+            if cfg_objective != "global" and solver_config.objective != cfg_objective:
+                solver_config = dataclasses.replace(solver_config, objective=cfg_objective)
+            if path_weight_fn is not None:
+                solver_config = dataclasses.replace(solver_config, path_weight_fn=path_weight_fn)
+            if z_match_weight:
+                solver_config = dataclasses.replace(
+                    solver_config, z_match_weight=float(z_match_weight), z_match_mask=z_mask)
         self.config = solver_config
 
         self.net = self._init_net(seed)
@@ -383,9 +422,22 @@ class Trainer:
         )
         return dW.transpose(0, 1)
 
+    def _initial_states(self) -> Tensor:
+        """The batch's X0 (M, D): ``problem.x0`` broadcast, or a fresh draw
+        of ``x0_sampler`` from the generator (M/2 states tiled over both
+        halves under ``antithetic``)."""
+        if self.x0_sampler is None:
+            return self._X0
+        if self.antithetic:
+            half = self.x0_sampler(self.generator, self.M // 2).to(self.dtype)
+            return torch.cat([half, half], dim=0)
+        return self.x0_sampler(self.generator, self.M).to(self.dtype)
+
     def _batch(self) -> tuple[Tensor, Tensor, Tensor]:
-        """One training batch in the loss's layout: (ts, dWs, X0)."""
-        return self._ts, self._increments(self.N), self._X0
+        """One training batch in the loss's layout: (ts, dWs, X0), the
+        increments drawn before X0."""
+        dWs = self._increments(self.N)
+        return self._ts, dWs, self._initial_states()
 
     # ------------------------------------------------------------- train step
     def _select_optimizer(self, optimizer_type: str, learning_rate: LearningRate,
@@ -419,7 +471,10 @@ class Trainer:
         """One optimizer step on the batch, in place: parameters, optimizer
         state and EMA shadow. Returns the rollout (detached loss and Y0)."""
         params = self._params
-        res: RolloutResult = self.loss_fn(self.net, ts, dWs, X0, paths=paths)
+        # local_ema: the shadow before this iteration's update is the target net
+        target = self._ema if self._local_ema else None
+        res: RolloutResult = self.loss_fn(self.net, ts, dWs, X0, paths=paths,
+                                          target_params=target)
         grads = torch.autograd.grad(res.loss, params)
         with torch.no_grad():
             updates, state = self._tx.update(grads, self._opt_state, params)
@@ -454,7 +509,8 @@ class Trainer:
 
     def _iteration(self, chunk: _Chunk) -> None:
         """The body of a chunk: draw, step, and log into the chunk's buffers."""
-        res = self._update(chunk.ts, self._increments(chunk.N), self._X0, paths=self.track_best)
+        dWs = self._increments(chunk.N)
+        res = self._update(chunk.ts, dWs, self._initial_states(), paths=self.track_best)
         with torch.no_grad():
             chunk.losses.index_copy_(0, chunk.idx, res.loss.reshape(1))
             chunk.y0s.index_copy_(0, chunk.idx, res.Y0.reshape(1))

@@ -110,11 +110,17 @@ def test_path_loss_shapes_and_value():
 def test_later_options_raise():
     prob, net = BlackScholesBarenblatt(D=D), from_flax_params(_case([D + 1, 8, 1])[1], "sine",
                                                                device="cpu")
-    for cfg in (SolverConfig(objective="local"), SolverConfig(z_match_weight=1.0),
-                SolverConfig(path_weight_fn=lambda x: x), SolverConfig(stochastic_net=True),
-                SolverConfig(remat_policy="dots_saveable"), SolverConfig(unroll=4)):
+    for cfg in (SolverConfig(stochastic_net=True), SolverConfig(remat_policy="dots_saveable"),
+                SolverConfig(unroll=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_loss_fn(prob, net, cfg)
+    # the loss options of the local objective are ported (test_torch_stopping_loss.py)
+    for cfg in (SolverConfig(objective="local"), SolverConfig(objective="local",
+                                                              z_match_weight=1.0),
+                SolverConfig(path_weight_fn=lambda x: x)):
+        make_loss_fn(prob, net, cfg)
+    with pytest.raises(ValueError, match="z_match_weight requires"):
+        make_loss_fn(prob, net, SolverConfig(z_match_weight=1.0))
     with pytest.raises(ValueError, match="objective"):
         make_loss_fn(prob, net, SolverConfig(objective="other"))
     with pytest.raises(ValueError, match="backend"):

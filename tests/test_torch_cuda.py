@@ -554,3 +554,114 @@ def test_harness_rows_run_on_the_card(cuda_device, row):
     assert np.isfinite(res.learned_y0) and np.isfinite(res.oracle_y0) and res.oracle_y0 > 0
     assert res.iters_per_sec > 0 and res.wall_time_s > 0
     assert res.config["phases"][0][0] == 100
+
+
+# ---- the stopping slice on the card ------------------------------------------
+
+
+def _stopping_trainer(device, remat, **kw):
+    from dnnpde_tpu_torch.pde import HestonAmericanPut
+    from dnnpde_tpu_torch.sim import lognormal_x0
+    from dnnpde_tpu_torch.solver import SolverConfig, iv_space_weights
+    from dnnpde_tpu_torch.train import Trainer
+
+    prob = HestonAmericanPut()
+    return Trainer(prob, M=CHUNK_M, N=CHUNK_N, layers=[3, 64, 64, 64, 1], seed=4, device=device,
+                   ema_decay=0.9, objective="local_ema", antithetic=True,
+                   x0_sampler=lognormal_x0(prob.x0, [0.1, 0.4]), z_match_weight=0.5,
+                   z_match_mask=(0.0, 1.0), path_weight_fn=iv_space_weights(r=prob.r),
+                   solver_config=SolverConfig(remat=remat), **kw)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_stopping_trainer_captured_chunk_equals_eager_steps(cuda_device, remat):
+    """local_ema targets, a lognormal X0 sampler under antithetic
+    increments, Z-matching and IV-space weights, all inside the captured
+    iteration: the chunk equals eager steps bit for bit."""
+    k = 8
+    captured, eager = (_stopping_trainer(cuda_device, remat, nan_guard=True) for _ in range(2))
+    captured.train(k, 1e-3, log_every=k, verbose=False)
+    losses, y0s = _eager_steps(eager, k)
+    got_losses, got_y0s = _last_chunk(captured, k)
+    assert bool(torch.isfinite(losses).all())
+    assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
+    _assert_same_state(captured, eager)
+
+
+def test_local_step_on_kernels_matches_f32(cuda_device):
+    """The local objective with sparse exercise dates on K1 + K2 against
+    the f32 path: loss and every gradient within 2e-2 of max|f32|."""
+    from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.pde import BermudanMaxCall
+    from dnnpde_tpu_torch.sim import time_major_batch
+    from dnnpde_tpu_torch.solver import SolverConfig, make_loss_fn
+
+    prob = BermudanMaxCall(D=2, N_steps=18, head=False)
+    net = MLP([3, 256, 256, 256, 256, 1], "sine", generator=torch.Generator().manual_seed(0),
+              device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ts, dWs = time_major_batch(gen, 256, 18, 2, prob.T)
+    X0 = prob.x0.to(cuda_device).expand(256, 2)
+    out = {}
+    for backend in ("cuda", "torch"):
+        res = make_loss_fn(prob, net, SolverConfig(fused_net_u=backend, remat=False,
+                                                   objective="local"))(net, ts, dWs, X0)
+        out[backend] = [res.loss.detach(), *torch.autograd.grad(res.loss, list(net.parameters()))]
+    for a, ref in zip(out["cuda"], out["torch"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+def _recorded(module, monkeypatch):
+    """Record the normals ``module._normals`` draws; returns the record."""
+    record, draw = [], module._normals
+
+    def recording(*args):
+        z = draw(*args)
+        record.append(z.cpu())
+        return z
+
+    monkeypatch.setattr(module, "_normals", recording)
+    return record
+
+
+def _replayed(module, monkeypatch, record):
+    it = iter(record)
+    monkeypatch.setattr(module, "_normals", lambda *args: next(it).clone())
+
+
+def test_lsmc_and_policy_value_on_the_card_match_their_cpu_runs(cuda_device, monkeypatch):
+    """The oracles on the card against the same computation on the CPU fed
+    the card's own normals: within 0.05 standard errors (the f32 states
+    differ in the last bits, so a decision at a near-tie may flip)."""
+    import copy
+    import importlib
+
+    from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.pde import BermudanMaxCall, HestonAmericanPut
+
+    # the modules (the packages export functions of the same names)
+    pv_mod = importlib.import_module("dnnpde_tpu_torch.evals.policy_value")
+    ls_mod = importlib.import_module("dnnpde_tpu_torch.numerics.longstaff_schwartz")
+
+    net = MLP([3, 64, 64, 1], "sine", generator=torch.Generator().manual_seed(2),
+              device=cuda_device)
+    cpu_net = copy.deepcopy(net).cpu()
+    prob = HestonAmericanPut()
+    kw = dict(N=10, n_regression=16_384, n_pricing=32_768, seed=0)
+    record = _recorded(ls_mod, monkeypatch)
+    card = ls_mod.lsmc_value(prob, cv_net=net, **kw)
+    _replayed(ls_mod, monkeypatch, record)
+    cpu = ls_mod.lsmc_value(prob, cv_net=cpu_net, **kw)
+    assert abs(card.value - cpu.value) <= 0.05 * cpu.standard_error
+    assert abs(card.plain_value - cpu.plain_value) <= 0.05 * cpu.standard_error
+    assert card.cv_variance_reduction > 1.0
+
+    prob = BermudanMaxCall(D=2, N_steps=9)
+    kw = dict(N=9, n_paths=65_536, batch=32_768, seed=3)
+    record = _recorded(pv_mod, monkeypatch)
+    card = pv_mod.policy_value(prob, net, **kw)
+    _replayed(pv_mod, monkeypatch, record)
+    cpu = pv_mod.policy_value(prob, cpu_net, **kw)
+    assert abs(card.value - cpu.value) <= 0.05 * cpu.standard_error
+    assert abs(card.exercise_fraction - cpu.exercise_fraction) <= 1e-3

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``dnnpde_tpu_torch``, not
 ``chip_smoke.py`` and not the port's scripts ``scripts/time_tree.py``,
-``scripts/k4_anatomy.py`` and ``scripts/anneal_20k.py`` imports
+``scripts/k4_anatomy.py``, ``scripts/anneal_20k.py`` and
+``scripts/stopping_rows.py`` imports
 JAX, Flax, Optax or the JAX package; and its entry points never fall back to
 the CPU on their own.
 
@@ -23,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dnnpde_tpu")
 def _port_sources() -> list[Path]:
     files = sorted((ROOT / "dnnpde_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f"{s}.py" for s in ("time_tree", "k4_anatomy", "anneal_20k")]
+        ROOT / "scripts" / f"{s}.py"
+        for s in ("time_tree", "k4_anatomy", "anneal_20k", "stopping_rows")]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -51,7 +53,10 @@ def test_port_sources_found():
         "ops/fused_net_u", "ops/mlp_kernel", "ops/path_kernel", "sim/euler_maruyama",
         "numerics/black_scholes", "numerics/monte_carlo", "evals/metrics", "evals/greeks",
         "evals/predictions", "pde/heston", "numerics/heston", "numerics/quadrature",
-        "numerics/crank_nicolson", "bench/__init__", "bench/__main__", "bench/harness")} <= names
+        "numerics/crank_nicolson", "bench/__init__", "bench/__main__", "bench/harness",
+        "numerics/binomial", "numerics/longstaff_schwartz", "numerics/discrete_bsde",
+        "numerics/implied_vol", "evals/policy_value", "solver/weights", "sim/x0_samplers")} <= names
+    assert "scripts/stopping_rows.py" in names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -192,3 +197,30 @@ def test_harness_slice_entry_points_without_cuda_raise(no_cuda):
                                 num_steps=4)
     assert price.device.type == se.device.type == "cpu"
 
+
+
+def test_stopping_slice_entry_points_without_cuda_raise(no_cuda):
+    """The stopping slice's oracles and trainers resolve ``device=None`` to
+    the card and raise without one; a CPU net or a CPU generator is the
+    caller asking for the CPU."""
+    from dnnpde_tpu_torch.evals import policy_value
+    from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.numerics import bs_vega, crr_binomial, lsmc_value
+    from dnnpde_tpu_torch.pde import AmericanPutOption, HestonAmericanPut
+    from dnnpde_tpu_torch.sim import lognormal_x0
+    from dnnpde_tpu_torch.train import Trainer
+
+    calls = [
+        lambda: lsmc_value(AmericanPutOption(), N=2, n_regression=64, n_pricing=64),
+        lambda: bs_vega(1.0, 1.0, 1.0, 0.05, 0.2),
+        lambda: Trainer(HestonAmericanPut(), M=4, N=2, layers=[3, 8, 1], objective="local"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    net = MLP([2, 8, 1], device="cpu")
+    assert policy_value(AmericanPutOption(), net, N=2, n_paths=64).n_paths == 64
+    assert lsmc_value(AmericanPutOption(), N=2, n_regression=64, n_pricing=64,
+                      cv_net=net).n_pricing == 64
+    assert crr_binomial(1.0, 1.0, 1.0, 0.06, 0.2, n_steps=8) > 0
+    assert lognormal_x0([1.0], 0.1)(torch.Generator().manual_seed(0), 4).device.type == "cpu"

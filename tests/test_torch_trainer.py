@@ -135,10 +135,14 @@ def test_auto_remat_rule():
 
 
 def test_device_none_and_later_features_raise(monkeypatch):
-    for kw in ({"x0_sampler": lambda k, m: None}, {"objective": "local"},
-               {"path_weight_fn": lambda x: x}, {"z_match_weight": 1.0}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _trainer(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _trainer(mesh=object())
+    # sampled X0, the local objectives, path weights and Z-matching are
+    # ported (test_torch_stopping_trainer.py)
+    for kw in ({"x0_sampler": lambda g, m: None, "objective": "local"}, {"objective": "local"},
+               {"path_weight_fn": lambda x: x},
+               {"z_match_weight": 1.0, "objective": "local"}):
+        _trainer(**kw)
     tr = _trainer()
     for call in (tr.polish, lambda: tr.train(1, 1e-3, "LBFGS")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
