@@ -1,7 +1,13 @@
 """Evaluation layer ported so far: greeks, error metrics, prediction
-sampling and the policy value of optimal-stopping nets. The rest of the JAX package's ``evals`` is listed in ROADMAP.md,
-Queue 1."""
+sampling, the policy value of optimal-stopping nets, the neural control
+variate and the plots. The rest of the JAX package's ``evals`` is listed in
+ROADMAP.md, Queue 1."""
 
+from dnnpde_tpu_torch.evals.control_variate import (
+    NeuralCVValue,
+    neural_cv_from_trainer,
+    neural_cv_value,
+)
 from dnnpde_tpu_torch.evals.greeks import compute_greeks, heston_greeks, learned_price_surface
 from dnnpde_tpu_torch.evals.metrics import (
     ConvergenceAnalysis,
@@ -14,9 +20,15 @@ from dnnpde_tpu_torch.evals.policy_value import (
     policy_value,
     policy_value_from_trainer,
 )
+from dnnpde_tpu_torch.evals.plots import TrainingPlot, figsize
 from dnnpde_tpu_torch.evals.predictions import PredictionGenerator, PredictionResult
 
 __all__ = [
+    "NeuralCVValue",
+    "neural_cv_from_trainer",
+    "neural_cv_value",
+    "TrainingPlot",
+    "figsize",
     "ConvergenceAnalysis",
     "error_stats",
     "relative_l2_error",

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.numerics.discrete_bsde import probe_linear_driver
+from dnnpde_tpu_torch.numerics.discrete_bsde import euler_step, probe_linear_driver
 from dnnpde_tpu_torch.numerics.longstaff_schwartz import _normals
 from dnnpde_tpu_torch.runtime import default_device
 
@@ -92,8 +92,6 @@ def policy_value(
     chol_T = None if chol is None else torch.as_tensor(chol, dtype=dtype).T.to(device)
     x0 = torch.as_tensor(np.asarray(problem.x0 if x0 is None else x0, np.float32),
                          dtype=dtype).to(device)
-    Yz = torch.zeros((batch, 1), dtype=dtype, device=device)
-    Zz = torch.zeros((batch, D), dtype=dtype, device=device)
     # per-step discounts (1+rΔt)^{-n} at grid index n = 1..N
     disc = ((1.0 + rate * dt) ** (-(np.arange(N) + 1.0))).astype(np.float32)
     ex_date = (np.arange(1, N + 1) % k_ex) == 0
@@ -108,12 +106,8 @@ def policy_value(
             dw = sqrt_dt * _normals(gen, batch, Dw, dtype)
             if chol_T is not None:
                 dw = dw @ chol_T
-            t0 = torch.full((batch, 1), n * dt, dtype=dtype, device=device)
-            sig = problem.sigma(t0, X, Yz)
-            X1 = X + problem.mu(t0, X, Yz, Zz) * dt + problem.sigma_dw(sig, dw)
+            X1, _ = euler_step(problem, n, X, dw, dt)
             t1 = torch.full((batch, 1), (n + 1) * dt, dtype=dtype, device=device)
-            if problem.has_post_step:
-                X1 = problem.post_step(t1, X1)
             g1 = problem.g(X1)[:, 0]
             # maturity pays regardless of the net; earlier dates exercise where
             # the payoff beats the learned continuation

@@ -1,8 +1,9 @@
 """Classical numerics: the ground-truth oracles ported so far (Black–Scholes
 closed forms and vega, the Monte-Carlo pricers, the Heston closed form, its
-Milstein pricers and Crank–Nicolson solver, Gauss–Legendre quadrature, and
+Milstein pricers and Crank–Nicolson solver, Gauss–Legendre quadrature,
 the optimal-stopping oracles: the CRR tree and Longstaff–Schwartz with the
-linear-driver probe). The rest of the JAX package's ``numerics`` is listed
+linear-driver probe, and the discrete-N BSDE oracles, pseudo-random and
+randomized QMC). The rest of the JAX package's ``numerics`` is listed
 in ROADMAP.md, Queue 1."""
 
 from dnnpde_tpu_torch.numerics.black_scholes import (
@@ -21,7 +22,12 @@ from dnnpde_tpu_torch.numerics.crank_nicolson import (
     cn_delta_gamma,
     crank_nicolson_heston,
 )
-from dnnpde_tpu_torch.numerics.discrete_bsde import probe_linear_driver
+from dnnpde_tpu_torch.numerics.discrete_bsde import (
+    DiscreteBSDEValue,
+    discrete_bsde_surface,
+    discrete_bsde_value,
+    probe_linear_driver,
+)
 from dnnpde_tpu_torch.numerics.heston import (
     HestonParams,
     heston_call_price,
@@ -38,6 +44,12 @@ from dnnpde_tpu_torch.numerics.monte_carlo import (
     basket_delta_mc,
     basket_price_paths_mc,
     hjb_exact_mc,
+)
+from dnnpde_tpu_torch.numerics.qmc import (
+    QMCValue,
+    brownian_bridge_order,
+    discrete_bsde_value_qmc,
+    sobol_brownian_increments,
 )
 from dnnpde_tpu_torch.numerics.quadrature import gauss_legendre
 
@@ -67,7 +79,14 @@ __all__ = [
     "gauss_legendre",
     "bs_vega",
     "crr_binomial",
+    "DiscreteBSDEValue",
+    "discrete_bsde_surface",
+    "discrete_bsde_value",
     "probe_linear_driver",
+    "QMCValue",
+    "brownian_bridge_order",
+    "discrete_bsde_value_qmc",
+    "sobol_brownian_increments",
     "LSMCValue",
     "basis_size",
     "lsmc_value",

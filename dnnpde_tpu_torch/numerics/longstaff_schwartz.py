@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.numerics.discrete_bsde import probe_linear_driver
+from dnnpde_tpu_torch.numerics.discrete_bsde import euler_step, probe_linear_driver
 from dnnpde_tpu_torch.runtime import default_device
 
 Tensor = torch.Tensor
@@ -76,8 +76,6 @@ def _simulate_paths(problem, N, n, seed, chol, dtype, x0=None, cv_net=None, rate
     dt = T / N
     sqrt_dt = float(np.sqrt(dt))
     chol_T = None if chol is None else torch.as_tensor(chol, dtype=dtype).T.to(device)
-    Yz = torch.zeros((n, 1), dtype=dtype, device=device)
-    Zz = torch.zeros((n, D), dtype=dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     step_disc = ((1.0 + rate * dt) ** (-(np.arange(N) + 1.0))).astype(np.float32)
     net_u = None if cv_net is None else make_net_u(cv_net, transform=problem.transform_u)
@@ -89,15 +87,11 @@ def _simulate_paths(problem, N, n, seed, chol, dtype, x0=None, cv_net=None, rate
             dw = sqrt_dt * _normals(gen, n, Dw, dtype)
             if chol_T is not None:
                 dw = dw @ chol_T
-            t0 = torch.full((n, 1), step_i * dt, dtype=dtype, device=device)
-            sig = problem.sigma(t0, X, Yz)
+            X1, sig = euler_step(problem, step_i, X, dw, dt)
             if net_u is not None:
+                t0 = torch.full((n, 1), step_i * dt, dtype=dtype, device=device)
                 _, Z = net_u(t0, X)
                 Minc.append(float(step_disc[step_i]) * problem.z_sigma_dw(Z, sig, dw)[:, 0])
-            X1 = X + problem.mu(t0, X, Yz, Zz) * dt + problem.sigma_dw(sig, dw)
-            if problem.has_post_step:
-                t1 = torch.full((n, 1), (step_i + 1) * dt, dtype=dtype, device=device)
-                X1 = problem.post_step(t1, X1)
             X = X1
             Xs.append(X1)
     Xs = torch.stack(Xs).cpu().numpy().astype(np.float32)

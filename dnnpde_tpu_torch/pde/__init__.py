@@ -2,6 +2,7 @@ from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.pde.heston import HestonAmericanPut, HestonPDE
 from dnnpde_tpu_torch.pde.problems import (
     AmericanPutOption,
+    AsianCallOption,
     BasketCallOption,
     BermudanMaxCall,
     BlackScholesBarenblatt,
@@ -9,6 +10,8 @@ from dnnpde_tpu_torch.pde.problems import (
     CallOption1D,
     CallOptionND,
     HamiltonJacobiBellman,
+    LookbackCallOption,
+    UpAndOutCall,
 )
 
 __all__ = [
@@ -23,4 +26,7 @@ __all__ = [
     "AmericanPutOption",
     "BermudanMaxCall",
     "HestonAmericanPut",
+    "UpAndOutCall",
+    "AsianCallOption",
+    "LookbackCallOption",
 ]

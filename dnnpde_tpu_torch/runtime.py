@@ -6,6 +6,8 @@ is used only when the caller asks for it by name; there is no silent fallback.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -53,3 +55,20 @@ class OnDevice:
         if device not in self._by_device:
             self._by_device[device] = self.value.to(device)
         return self._by_device[device]
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the block with TF32 off for matmuls and convolutions, restoring
+    the caller's settings after it: the counterpart of
+    ``jax.default_matmul_precision("highest")``."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])

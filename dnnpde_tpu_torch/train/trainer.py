@@ -28,8 +28,14 @@ counterpart of ``dnnpde_tpu/train/trainer.py``.
   update); ``x0_sampler`` draws a fresh X0 batch every iteration from the
   trainer's generator, after the increments.
 
-Not ported yet, and raising ``NotImplementedError``: meshes, LBFGS and
-``polish`` (ROADMAP.md Queue 1).
+- LBFGS (``optimizers.LBFGS``, optax's zoom-linesearch LBFGS) trains
+  eagerly on every device: its linesearch re-evaluates the loss on the
+  iteration's batch until a data-dependent condition holds, which a CUDA
+  graph cannot capture. The choice is made by optimizer type, never by a
+  failed capture. ``polish`` runs LBFGS on one frozen batch.
+
+Not ported yet, and raising ``NotImplementedError``: meshes (ROADMAP.md
+Queue 1).
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch
 
 from dnnpde_tpu_torch.nets import build_network
 from dnnpde_tpu_torch.pde.base import PDEProblem
-from dnnpde_tpu_torch.runtime import default_device
+from dnnpde_tpu_torch.runtime import default_device, full_f32_matmul
 from dnnpde_tpu_torch.sim.brownian import brownian_increments, brownian_paths, time_grid
 from dnnpde_tpu_torch.sim.correlation import cholesky_factor, generate_correlation_matrix
 from dnnpde_tpu_torch.solver.bsde import (
@@ -59,7 +65,7 @@ from dnnpde_tpu_torch.solver.bsde import (
     make_path_loss_fn,
 )
 from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
-from dnnpde_tpu_torch.train.optimizers import LearningRate, build_optimizer
+from dnnpde_tpu_torch.train.optimizers import LBFGS, LearningRate, build_optimizer
 from dnnpde_tpu_torch.train.schedules import TimeStepRefinement
 
 Tensor = torch.Tensor
@@ -477,7 +483,12 @@ class Trainer:
                                           target_params=target)
         grads = torch.autograd.grad(res.loss, params)
         with torch.no_grad():
-            updates, state = self._tx.update(grads, self._opt_state, params)
+            if isinstance(self._tx, LBFGS):
+                updates, state = self._tx.update(
+                    grads, self._opt_state, params, value=res.loss,
+                    value_and_grad=self._value_and_grad(ts, dWs, X0, target))
+            else:
+                updates, state = self._tx.update(grads, self._opt_state, params)
             # the guard skips the WHOLE update on a non-finite loss, optimizer
             # state and EMA included, else NaN moments poison the next step
             ok = torch.isfinite(res.loss) if self.nan_guard else None
@@ -493,6 +504,28 @@ class Trainer:
                     new = e + a * (p - e)
                     e.copy_(new if ok is None else torch.where(ok, new, e))
         return res._replace(loss=res.loss.detach(), Y0=res.Y0.detach())
+
+    def _value_and_grad(self, ts: Tensor, dWs: Tensor, X0: Tensor, target=None):
+        """``trial params -> (loss, grads)`` on this batch and target, for
+        LBFGS's linesearch: the trial values are copied into the net's
+        parameters for the evaluation and the current ones copied back."""
+        params = self._params
+        current = [p.detach().clone() for p in params]
+
+        def value_and_grad(trial):
+            with torch.no_grad():
+                for p, q in zip(params, trial):
+                    p.copy_(q)
+            with torch.enable_grad():
+                loss = self.loss_fn(self.net, ts, dWs, X0, paths=False,
+                                    target_params=target).loss
+                grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p, q in zip(params, current):
+                    p.copy_(q)
+            return loss.detach(), grads
+
+        return value_and_grad
 
     def step(
         self, ts: Tensor, dWs: Tensor, X0: Tensor,
@@ -555,7 +588,7 @@ class Trainer:
         chunk.idx.zero_()
         if self.track_best:
             chunk.best_loss.fill_(float("inf"))
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or isinstance(self._tx, LBFGS):
             for _ in range(k):
                 self._iteration(chunk)
             return
@@ -732,8 +765,81 @@ class Trainer:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")
 
-    def polish(self, *args, **kwargs):
-        raise NotImplementedError(f"Trainer.polish (LBFGS) {_LATER}")
+    def polish(
+        self,
+        n_iter: int = 400,
+        learning_rate: Optional[float] = None,
+        M: Optional[int] = None,
+        seed: Optional[int] = None,
+        from_ema: bool = False,
+        antithetic: Optional[bool] = None,
+    ) -> np.ndarray:
+        """Deterministic LBFGS polish: ``n_iter`` LBFGS steps (zoom
+        linesearch) on ONE frozen batch of ``M`` paths (default the
+        trainer's M), antithetic by default (M rounded up to even) whatever
+        the training setting, drawn from the trainer's generator (or a fresh
+        one seeded by ``seed``): increments first, then X0 from
+        ``x0_sampler`` (M/2 states tiled under antithetic) or ``problem.x0``.
+
+        Updates the parameters in place, starting from the raw ones or, with
+        ``from_ema``, the EMA shadow; the EMA is left as it is. Appends the
+        last loss, the iteration and Y0 at x0 to the history and advances
+        the iteration counter by ``n_iter``. Runs eagerly with TF32 off (the
+        caller's matmul settings restored after). ``learning_rate=None``
+        takes the linesearch's step sizes unscaled. Returns the (n_iter,)
+        per-step losses."""
+        M = int(M or self.M)
+        anti = True if antithetic is None else bool(antithetic)
+        if anti and M % 2:
+            M += 1
+        p = self.problem
+        N = self.N
+        gen = (self.generator if seed is None
+               else torch.Generator(device=self.device).manual_seed(int(seed)))
+        dWs = brownian_increments(gen, M, N, p.noise_dim, p.T / N, self.chol, self.dtype,
+                                  antithetic=anti).transpose(0, 1)
+        ts = time_grid(M, N, p.T, self.dtype, self.device).transpose(0, 1)
+        if self.x0_sampler is not None:
+            if anti:
+                half = self.x0_sampler(gen, M // 2).to(self.dtype)
+                X0 = torch.cat([half, half], dim=0)
+            else:
+                X0 = self.x0_sampler(gen, M).to(self.dtype)
+        else:
+            X0 = p.x0.to(self.device, self.dtype).expand(M, p.dim)
+        return self._polish_on(ts, dWs, X0, n_iter, learning_rate, from_ema)
+
+    def _polish_on(self, ts: Tensor, dWs: Tensor, X0: Tensor, n_iter: int,
+                   learning_rate: Optional[float] = None, from_ema: bool = False) -> np.ndarray:
+        """:meth:`polish`'s LBFGS steps and bookkeeping on a given batch."""
+        params = self._params
+        if from_ema:
+            with torch.no_grad():
+                for q, e in zip(params, self.ema_params.parameters()):
+                    q.copy_(e)
+        tx = LBFGS(learning_rate)
+        state = tx.init(params)
+        losses = []
+        with full_f32_matmul():
+            for _ in range(n_iter):
+                with torch.enable_grad():
+                    loss = self.loss_fn(self.net, ts, dWs, X0, paths=False).loss
+                    grads = torch.autograd.grad(loss, params)
+                loss = loss.detach()
+                with torch.no_grad():
+                    updates, state = tx.update(grads, state, params, value=loss,
+                                               value_and_grad=self._value_and_grad(ts, dWs, X0))
+                    for q, u in zip(params, updates):
+                        q.add_(u)
+                losses.append(loss)
+        losses = torch.stack(losses).cpu().numpy()
+        it = self._next_it
+        self._next_it = it + n_iter
+        self.training_loss.append(float(losses[-1]))
+        self.iteration.append(it)
+        u, _ = self.evaluate_u(np.zeros((1, 1)), self.problem.x0.numpy()[None, :])
+        self.y0_log.append(float(u[0, 0]))
+        return losses
 
     # ------------------------------------------------------------- checkpoint
     def save_model(self, file_name: str) -> None:

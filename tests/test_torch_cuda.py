@@ -665,3 +665,66 @@ def test_lsmc_and_policy_value_on_the_card_match_their_cpu_runs(cuda_device, mon
     cpu = pv_mod.policy_value(prob, cpu_net, **kw)
     assert abs(card.value - cpu.value) <= 0.05 * cpu.standard_error
     assert abs(card.exercise_fraction - cpu.exercise_fraction) <= 1e-3
+
+
+def test_lbfgs_polish_on_the_card_matches_the_cpu(cuda_device):
+    """Ten LBFGS steps of a frozen-batch polish of the 1-D call on a
+    [2, 16, 16, 1] net: on the card (TF32 off inside polish) and on the CPU
+    from the same weights and batch, each loss within 1e-4 relative."""
+    from dnnpde_tpu_torch.pde import CallOption1D
+    from dnnpde_tpu_torch.sim import brownian_increments, time_grid
+    from dnnpde_tpu_torch.train import Trainer
+
+    kw = dict(M=64, N=8, layers=[2, 16, 16, 1], seed=3)
+    card = Trainer(CallOption1D(), device=cuda_device, **kw)
+    cpu = Trainer(CallOption1D(), device="cpu", **kw)
+    card.train(20, 1e-3, log_every=20, verbose=False)
+    with torch.no_grad():
+        for p, q in zip(cpu.params.parameters(), card.params.parameters()):
+            p.copy_(q.cpu())
+    M = 1024
+    dWs = brownian_increments(torch.Generator().manual_seed(4), M, 8, 1, 1 / 8,
+                              antithetic=True).transpose(0, 1)
+    ts = time_grid(M, 8, 1.0, device="cpu").transpose(0, 1)
+    X0 = CallOption1D().x0.expand(M, 1)
+    ref = cpu._polish_on(ts, dWs, X0, n_iter=10)
+    ours = card._polish_on(*(a.to(cuda_device) for a in (ts, dWs, X0)), n_iter=10)
+    rel = np.abs(ours - ref) / np.abs(ref)
+    assert rel.max() <= 1e-4, (ours, ref)
+    assert ours[-1] < ours[0]
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_qmc_oracle_on_the_card_equals_the_cpu(cuda_device):
+    """The same Sobol points through the chain on the card and on the CPU."""
+    from dnnpde_tpu_torch.numerics import discrete_bsde_value_qmc
+    from dnnpde_tpu_torch.pde import UpAndOutCall
+
+    kw = dict(N=10, n_paths=4096, n_replicates=4, seed=1)
+    card = discrete_bsde_value_qmc(UpAndOutCall(), device=cuda_device, **kw)
+    cpu = discrete_bsde_value_qmc(UpAndOutCall(), device="cpu", **kw)
+    assert card.value == pytest.approx(cpu.value, rel=1e-5)
+
+
+def test_cli_runs_on_the_card_through_its_entry_point(cuda_device, tmp_path):
+    """``python3 -m dnnpde_tpu_torch`` in a subprocess: the barrier call,
+    objective resolved to local, graded against the discrete oracle, with
+    the control-variate price and an exported solution."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "dnnpde_tpu_torch", "--problem", "barrier_call", "--M", "64",
+           "--N", "10", "--width", "32", "--depth", "2", "--iters", "60", "20", "--log-every",
+           "20", "--quiet", "--cv-price", "16384", "--out", str(out), "--export",
+           str(tmp_path / "sol.pt")]
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    summary = json.loads((out / "summary.json").read_text())
+    assert summary["problem"] == "barrier_call" and np.isfinite(summary["learned_y0"])
+    assert 0.0 < summary["oracle_y0"] < 0.1
+    assert summary["cv_price"]["n_paths"] == 16384
+    assert (tmp_path / "sol.pt").exists()

@@ -49,7 +49,12 @@ def test_matches_optax(name, clipped):
 
 
 def test_unknown_name_and_lbfgs_raise():
+    """An unknown name raises; LBFGS, once not ported, now builds optax's
+    zoom-linesearch LBFGS without clipping (tests/test_torch_lbfgs.py)."""
+    from dnnpde_tpu_torch.train.optimizers import LBFGS
+
     with pytest.raises(ValueError, match="not recognized"):
         build_optimizer("Lion", 1e-3)
-    with pytest.raises(NotImplementedError, match="LBFGS"):
-        build_optimizer("LBFGS", 1e-3)
+    tx = build_optimizer("LBFGS", 1e-3)
+    assert isinstance(tx, LBFGS) and tx.learning_rate == 1e-3
+    assert not hasattr(tx, "clip_norm")

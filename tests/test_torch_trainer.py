@@ -143,10 +143,10 @@ def test_device_none_and_later_features_raise(monkeypatch):
                {"path_weight_fn": lambda x: x},
                {"z_match_weight": 1.0, "objective": "local"}):
         _trainer(**kw)
+    # LBFGS training and polish are ported too (test_torch_lbfgs.py)
     tr = _trainer()
-    for call in (tr.polish, lambda: tr.train(1, 1e-3, "LBFGS")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert np.isfinite(tr.train(1, 1e-3, "LBFGS", log_every=1, verbose=False).graph).all()
+    assert tr.polish(n_iter=1, M=tr.M).shape == (1,)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(BlackScholesBarenblatt(D=D), M=M, N=N, layers=LAYERS)
