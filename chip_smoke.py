@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training, serving, basket, harness, stopping and
-CLI paths on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's training, serving, basket, harness, stopping,
+CLI, SDENet, surface and executor paths on one NVIDIA GPU and check its
+kernels.
 
     python3 chip_smoke.py
 
@@ -101,7 +102,7 @@ built for CUDA. It
    rel_error within 7.5 % of the discrete oracle, where seeds agree to a
    few percent; at the CLI's defaults even the JAX CLI misses by 13-21 %;
    the CV value within 4 combined SE of the oracle with a variance
-   reduction); the Asian and lookback calls at --iters 500 100; the 1-D
+   reduction); the Asian and lookback calls at --iters 200 50; the 1-D
    call with a 400-step LBFGS polish on 8192 frozen paths, --cv-price and
    --export (the polish loss falls 2x, rel_error below 5 %, the served
    polished Y0 within 20 % of Black-Scholes, the CV value within 4
@@ -111,16 +112,38 @@ built for CUDA. It
    one above the geometric closed form, the lookback one below the
    continuous one; no kernel launches on this path;
 
-   on each of the six paths all four launch counters are set to 0 just
+11. drives the SDENet path: a 20-iteration captured chunk of BSB-100 on
+   SDENet [101, 256 x 4, 1] (Sine, M = 100, N = 50; its noise drawn inside
+   the graph from the trainer's registered generator) held bit for bit
+   against 20 eager ``Trainer.step`` calls (losses, Y0s, parameters, Adam
+   state, generator state); 400 captured iterations whose mean logged loss
+   must fall; the saved and loaded solution's (u, Z) at 4096 states within
+   1e-5 of max|.| of the trainer's eval-path net_u (the fixed evaluation
+   noise), the same bit for bit across two requests, the trainer's
+   generator untouched;
+12. drives the surface path, ``python3 -m dnnpde_tpu_torch --problem heston
+   --surface`` in a child process at the recipe's widths (M = 1024, N = 50,
+   [3, 512 x 4, 1], local objective, "bs" head, x0-scale 0.3, EMA 0.999)
+   with the budget cut by ``--iters`` to 1600 (2000 iterations): the CSV's 5
+   rows (the t = 0 smile, greeks and 2-D surface at t = 0 and 0.5) complete
+   and finite, the smile's mean |IV error| at most 10 volpts, the exit code 0
+   exactly when the smile's ok holds;
+13. runs the five sweep executors (training, correlation, test case, HJB,
+   Heston) at ``tests/test_executors.py``'s tiny sizes on the card: each
+   CSV has one row per report row, every number finite, every row flagged;
+
+   on each of the nine paths all four launch counters are set to 0 just
    before it runs and read just after; the kernels line reports each
    kernel's launches path by path (K1's and K2's on the training, basket
    and stopping paths from the run's trace, the others from the wrappers;
-   none is on the harness and CLI paths) beside the wrapper calls;
-11. times training (iterations/s at M = 100, 512, 2048 on both paths,
+   none is on the harness, CLI, SDENet, surface and executor paths) beside
+   the wrapper calls;
+14. times training (iterations/s at M = 100, 512, 2048 on both paths,
    captured chunks and eager ``Trainer.step`` loops, and the basket run),
    traces BSB-100 kernel-path iterations at M = 100 with ``torch.profiler``,
    captured and eager (wall ms per iteration, device-busy ms, the device's
-   idle share, and K1's and K2's share of the device time), times the serving requests and both
+   idle share, and K1's and K2's share of the device time), times SDENet
+   beside the FC net on the f32 autograd path (captured and eager), times the serving requests and both
    oracles (host clock to result), then each kernel, its plain version and
    one PyTorch call that computes the same function (the library
    yardstick, which the port never calls; none computes K4's), and prints
@@ -153,7 +176,7 @@ TRAIN_M = 100
 TRAIN_ITERS = 400
 TRAIN_LOG_EVERY = 100
 TRAIN_RATE_MS = (100, 512, 2048)  # bench.py's rows
-RATE_ITERS = {100: 100, 512: 50, 2048: 20}  # per timed window, captured and eager
+RATE_ITERS = {100: 50, 512: 25, 2048: 10}  # per timed window, captured and eager
 CAPTURE_CHECK_ITERS = 100  # the captured chunk held bit for bit against eager steps
 PHASES = ((2000, 1e-3), (500, 1e-5))  # TrainingPhases' reference defaults
 PHASE_BASE_ITERS = 400  # |Y0 - exact| after these iterations is the mark to beat
@@ -1705,7 +1728,7 @@ CLI_BARRIER = ["--problem", "barrier_call", "--N", "10", "--M", "4096", "--iters
                "4000", "--lrs", "1e-3", "1e-4", "--ema-decay", "0.999", "--log-every", "500",
                "--cv-price", str(CLI_CV_PATHS), "--quiet"]
 CLI_BARRIER_REL_TOL = 0.075
-CLI_SHORT_ITERS = ("500", "100")  # the Asian and lookback runs
+CLI_SHORT_ITERS = ("200", "50")  # the Asian and lookback runs
 CLI_CALL1D = ["--problem", "call1d", "--D", "1", "--M", "256", "--N", "10", "--width", "32",
               "--depth", "4", "--iters", "800", "200", "--lrs", "1e-3", "1e-4", "--polish",
               "400", "--polish-m", "8192", "--cv-price",
@@ -1777,7 +1800,7 @@ def served_y0(path: str, x0, device) -> float:
 def drive_cli(device) -> dict:
     """The CLI path: BSB-100 at the CLI's defaults with --checkpoint and
     --export; ``CLI_BARRIER`` (with --cv-price 262144); the Asian and
-    lookback calls at --iters 500 100; ``CLI_CALL1D`` (a 400-step LBFGS
+    lookback calls at --iters 200 50; ``CLI_CALL1D`` (a 400-step LBFGS
     polish, --cv-price) with --export. Beside them, in this process, the
     discrete oracle again (its SE), the QMC oracle and the closed-form
     brackets, the exported BSB solution against the checkpoint's net, and
@@ -1987,6 +2010,293 @@ def check_cli(run) -> None:
     _require(not any(run["counts"].values()), f"CLI path launched kernels: {run['counts']}")
 
 
+# The SDENet path: BSB-100 on SDENet [101, 256 x 4, 1], Sine, M = 100, N = 50,
+# on the f32 autograd net_u (a stochastic net is not a plain MLP, so K1 + K2
+# do not serve it); its noise is drawn inside each captured iteration from the
+# trainer's registered generator.
+SDE_ITERS = 400
+SDE_LOG_EVERY = 100
+SDE_CAPTURE_ITERS = 20
+SDE_RATE_ITERS = 50
+SDE_SERVE_B = 4096
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sde_trainer(device, seed: int, mode: str = "SDEnet"):
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import Trainer
+
+    return Trainer(BlackScholesBarenblatt(D=D), M=TRAIN_M, N=N_STEPS, layers=LAYERS, mode=mode,
+                   activation="Sine", seed=seed, device=device)
+
+
+def check_sdenet_capture(device) -> dict:
+    """A 20-iteration captured SDENet chunk against 20 eager ``Trainer.step``
+    calls from the same state: losses, Y0s, parameters, Adam state and
+    generator state, bit for bit."""
+    k = SDE_CAPTURE_ITERS
+    captured, eager = _sde_trainer(device, 8), _sde_trainer(device, 8)
+    _require(captured.config.stochastic_net, "mode SDEnet did not set stochastic_net")
+    captured.train(k, 1e-3, "Adam", log_every=k, verbose=False)
+    chunk = next(iter(captured._chunk_cache.values()))
+    _require(chunk.graph is not None, "the SDENet chunk was not captured")
+    steps = [eager.step(*eager._batch(), "Adam", 1e-3) for _ in range(k)]
+    same = {
+        "losses": torch.equal(chunk.losses[:k], torch.stack([s[0] for s in steps])),
+        "y0": torch.equal(chunk.y0s[:k], torch.stack([s[1] for s in steps])),
+        "params": all(torch.equal(a, b) for a, b in zip(captured._params, eager._params)),
+        "adam_state": all(
+            torch.equal(a, b)
+            for key in ("count", "mu", "nu")
+            for a, b in zip(*(([t._opt_state[key]] if key == "count" else t._opt_state[key])
+                              for t in (captured, eager)))),
+        "generator": torch.equal(captured.generator.get_state(), eager.generator.get_state()),
+    }
+    print(f"SDENet: captured chunk of {k} iterations vs {k} eager steps, bitwise: "
+          + json.dumps(same))
+    _require(all(same.values()), "the SDENet captured chunk differs from the eager steps")
+    return same
+
+
+def time_sdenet(device) -> dict:
+    """Iterations/s of SDENet and of the FC net on the same (f32 autograd)
+    path at M = 100: captured chunks after a capturing warm-up window, and
+    eager ``Trainer.step`` loops, host clock around synchronized windows."""
+    out = {}
+    n = SDE_RATE_ITERS
+    for mode in ("SDEnet", "FC"):
+        tr = _sde_trainer(device, 2, mode)
+        tr.train(n, 1e-3, log_every=n, verbose=False)  # warm-up and capture
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        tr.train(n, 1e-3, log_every=n, verbose=False)
+        torch.cuda.synchronize(device)
+        out[f"{mode}_captured_it_per_s"] = n / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.step(*tr._batch(), "Adam", 1e-3)
+        torch.cuda.synchronize(device)
+        out[f"{mode}_eager_it_per_s"] = n / (time.perf_counter() - t0)
+    return out
+
+
+def drive_sdenet(device) -> dict:
+    """The SDENet path through the user entry points: ``Trainer(mode=
+    "SDEnet")`` trains 400 captured iterations; the solution is saved,
+    loaded and asked twice for (u, Z) at 4096 states, beside the trainer's
+    eval-path net_u on the same states. Returns the launch counts of all
+    four kernels in this run (none is on this path) and what it computed."""
+    from dnnpde_tpu_torch.serve import load_solution, save_solution
+
+    zero_counts()
+    tr = _sde_trainer(device, 0)
+    t0 = time.perf_counter()
+    res = tr.train(SDE_ITERS, 1e-3, "Adam", log_every=SDE_LOG_EVERY, verbose=False)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    rng = torch.Generator().manual_seed(34)
+    t_req = torch.rand((SDE_SERVE_B, 1), generator=rng).to(device)
+    X_req = (tr.problem.x0[None, :] * torch.exp(
+        0.2 * torch.randn((SDE_SERVE_B, D), generator=rng))).to(device)
+    state = tr.generator.get_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_solution(f"{tmp}/sde.pt", tr)
+        sol = load_solution(f"{tmp}/sde.pt", device=device)
+    served = [sol.u_and_grad_device(t_req, X_req) for _ in range(2)]
+    with torch.no_grad():
+        ref = tr.net_u(t_req, X_req)
+    out = {"iterations": SDE_ITERS, "seconds": seconds, "it_per_s": SDE_ITERS / seconds,
+           "mean_loss": res.graph[1].tolist(), "y0": res.y0_history.tolist(),
+           "served": served, "net_u": ref,
+           "generator_untouched": torch.equal(state, tr.generator.get_state())}
+    _sync(device)
+    out["counts"] = read_counts()
+    print("SDENet path: " + json.dumps({k: out[k] for k in (
+        "iterations", "seconds", "it_per_s", "mean_loss", "y0", "generator_untouched")}))
+    print(f"SDENet path: kernel launches {json.dumps(out['counts'])}")
+    return out
+
+
+def check_sdenet(run) -> None:
+    """The SDENet path's checks: the mean logged loss falls; the served
+    (u, Z) equal the eval-path net_u within 1e-5 of max|.| and repeat bit
+    for bit across two requests; serving leaves the generator alone; no
+    kernel launched."""
+    losses = run["mean_loss"]
+    print(f"SDENet: mean logged loss {losses[0]:.4e} -> {losses[-1]:.4e} "
+          f"({losses[0] / losses[-1]:.2f}x)")
+    _require(np.isfinite(losses).all() and losses[-1] < losses[0],
+             "SDENet: the mean logged loss did not fall")
+    (u1, z1), (u2, z2) = run["served"]
+    u_ref, z_ref = run["net_u"]
+    for name, a, ref in (("u", u1, u_ref), ("Z", z1, z_ref)):
+        err, rel = _rel_err(a, ref)
+        print(f"SDENet served {name} vs the eval-path net_u: max|d| {err:.3e}, rel {rel:.3e} "
+              f"(tol {SERVE_REL_TOL:g})")
+        _require(rel <= SERVE_REL_TOL, f"SDENet: served {name} differs from the eval path")
+    _require(torch.equal(u1, u2) and torch.equal(z1, z2),
+             "SDENet: two requests served different (u, Z)")
+    _require(run["generator_untouched"], "SDENet: serving moved the trainer's generator")
+    _require(not any(run["counts"].values()), f"SDENet path launched kernels: {run['counts']}")
+
+
+# The surface path: ``python3 -m dnnpde_tpu_torch --problem heston --surface``
+# at the recipe's widths (M = 1024, N = 50, [3, 512 x 4, 1], local objective,
+# "bs" head, x0-scale 0.3, EMA 0.999), its budget cut by --iters: budget
+# A + B trains (A + B) // 2 + (A + B) // 4 + (A + B) - 2 ((A + B) // 4)
+# iterations (the reference's split). The CLI grades the smile at t = 0 only
+# (SurfaceConfig's default), so its CSV holds 5 rows. The card trains the
+# recipe at 14-16 it/s (f32, TF32 off, remat on by the JAX package's rule),
+# so the phase affords 2000 iterations (budget 1600), where seed 0 read a mean
+# |IV error| of 7.41 volpts; 3 volpts needs about 4000 (budget 3200: 0.86,
+# 269 s), and at budget 1200 seeds 0 and 1 read 16.09 and 2.75 (PERF.md §6).
+# The bound catches a broken strike mapping or transform: the JAX package's
+# mis-targeted local_ema read 27.7, an untrained net reads hundreds.
+SURFACE_ITERS = ("1600", "0")
+SURFACE_IV_TOL = 10.0  # mean |IV error| of the cut run, volpts
+SURFACE_KINDS = ["iv_smile", "greeks", "greeks", "surface2d", "surface2d"]
+SURFACE_GRADED = {"iv_smile": ("mean_abs_iv_err_volpts", "max_abs_iv_err_volpts",
+                               "atm_iv_err_volpts"),
+                  "greeks": ("price_rel_l2", "delta_rel_l2", "gamma_rel_l2"),
+                  "surface2d": ("price2d_rel_l2", "vega_rel_l2")}
+
+
+def surface_iterations(budget: int) -> int:
+    return budget // 2 + budget // 4 + budget - 2 * (budget // 4)
+
+
+def drive_surface(device) -> dict:
+    """``python3 -m dnnpde_tpu_torch --problem heston --surface --iters
+    SURFACE_ITERS`` in a child process on the card: its exit code, wall
+    seconds, the CSV's rows (read with the csv module) and the kernel
+    launches it made."""
+    import csv
+    from pathlib import Path
+
+    argv = ["--problem", "heston", "--surface", "--iters", *SURFACE_ITERS]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-c", _CLI_CHILD, *argv, "--out", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        _require(proc.returncode in (0, 1), f"CLI --surface: exit code {proc.returncode}\n"
+                 f"{proc.stderr[-3000:]}")
+        with open(Path(tmp) / "results_heston_surface.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        plots = sorted(p.name for p in Path(tmp).iterdir() if p.suffix in (".png", ".npz"))
+    lines = proc.stdout.strip().splitlines()
+    counts = json.loads(next(ln for ln in lines if ln.startswith("CLI_COUNTS "))[11:])
+    budget = sum(int(a) for a in SURFACE_ITERS)
+    out = {"argv": argv, "rc": proc.returncode, "seconds": seconds, "rows": rows,
+           "plots": plots, "counts": counts, "budget": budget,
+           "iterations": surface_iterations(budget)}
+    smile = rows[0]
+    out["train_s"] = float(smile["run_time"])
+    out["it_per_s"] = out["iterations"] / out["train_s"]
+    print(f"surface path: rc {out['rc']}, {seconds:.1f} s wall, {out['iterations']} iterations "
+          f"in {out['train_s']:.1f} s ({out['it_per_s']:.2f} it/s), plots {plots}, launches "
+          f"{json.dumps(counts)}")
+    for r in rows:
+        print("surface row: " + json.dumps(
+            {k: r[k] for k in ("kind", "t", *SURFACE_GRADED.get(r["kind"], ()), "ok")}))
+    return out
+
+
+def check_surface(run) -> None:
+    """The surface path's checks: the CSV holds its 5 rows (1 smile, 2
+    greeks, 2 surface2d) with every graded number finite, the smile's mean
+    |IV error| ≤ 10 volpts (``SURFACE_IV_TOL``), the exit code 0 exactly
+    when the smile's ok holds, and no kernel launched."""
+    rows = run["rows"]
+    _require([r["kind"] for r in rows] == SURFACE_KINDS,
+             f"surface: rows {[r['kind'] for r in rows]}")
+    for r in rows:
+        vals = [float(r[k]) for k in SURFACE_GRADED[r["kind"]]]
+        _require(all(np.isfinite(vals)), f"surface: non-finite graded numbers in {r}")
+        _require(r["ok"] in ("True", "False"), f"surface: unflagged row {r}")
+    smile = rows[0]
+    mean_iv = float(smile["mean_abs_iv_err_volpts"])
+    _require(mean_iv <= SURFACE_IV_TOL,
+             f"surface: mean |IV error| {mean_iv:.3f} volpts above {SURFACE_IV_TOL}")
+    _require(run["rc"] == (0 if smile["ok"] == "True" else 1),
+             f"surface: exit code {run['rc']} disagrees with the smile's ok {smile['ok']}")
+    _require(int(smile["budget"]) == run["budget"], "surface: the budget was not --iters' sum")
+    _require(not any(run["counts"].values()), f"surface path launched kernels: {run['counts']}")
+
+
+# The sweep executors at tests/test_executors.py's tiny sizes, on the card.
+EXEC_TINY = dict(Ms=(8,), Ds=(3,), N=4, lr_pairs=((1e-3, 1e-4),), iter_pairs=((6, 2),),
+                 optimizers=("Adam",), modes=("FC",), activations=("Sine",),
+                 hidden=(16, 16, 16, 16))
+
+
+def drive_executors(device) -> dict:
+    """``TrainingExecutor``, ``CorrExecutor``, ``TestCaseExecutor``,
+    ``HJBExecutor`` and ``HestonExecutor`` at the JAX tests' tiny configs on
+    the card, each into its own directory: their report rows, the CSVs'
+    row counts and seconds, and the launch counts of this run."""
+    import csv
+    from pathlib import Path
+
+    from dnnpde_tpu_torch import experiments as ex
+
+    zero_counts()
+    runs = {
+        "training": (lambda d: ex.TrainingExecutor(ex.SweepConfig(**EXEC_TINY), d,
+                                                   device=device), "results.csv"),
+        "corr": (lambda d: ex.CorrExecutor(
+            ex.SweepConfig(**EXEC_TINY), d,
+            correlation_types=("no_correlation", "random_correlation"), device=device),
+            "results_corr.csv"),
+        "testcase": (lambda d: ex.TestCaseExecutor(ex.SweepConfig(**EXEC_TINY), d,
+                                                   device=device), "results_testcase.csv"),
+        "hjb": (lambda d: ex.HJBExecutor(ex.SweepConfig(**{**EXEC_TINY, "Ds": (5,)}), d,
+                                         device=device), "results_hjb.csv"),
+        "heston": (lambda d: ex.HestonExecutor(Ms=(4,), N=4, n_iter=(6, 2), save_path=d,
+                                               mode="FC", device=device), "results_heston.csv"),
+    }
+    out: dict = {"calls": {}}  # "runs" holds the traced kernel runs of other paths
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (make, csv_name) in runs.items():
+            t0 = time.perf_counter()
+            rep = make(f"{tmp}/{name}").execute()
+            with open(Path(tmp) / name / csv_name, newline="") as f:
+                n_csv = len(list(csv.DictReader(f)))
+            out["calls"][name] = {"rows": rep.rows, "csv_rows": n_csv,
+                                 "seconds": time.perf_counter() - t0}
+            print(f"executor {name}: {n_csv} rows in {out['calls'][name]['seconds']:.1f} s; "
+                  + json.dumps([{k: v for k, v in r.items() if k in (
+                      "Quality Flag", "Relative Error", "Exact Price", "Learned Price",
+                      "exact_y0", "learned_y0", "exact_u0", "learned_u0", "degenerate")}
+                                for r in rep.rows]))
+    _sync(device)
+    out["counts"] = read_counts()
+    print(f"executors path: kernel launches {json.dumps(out['counts'])}")
+    return out
+
+
+def check_executors(run) -> None:
+    """Each executor wrote one CSV row per report row, every numeric value
+    of every row finite and every row flagged; no kernel launched."""
+    import numbers
+
+    for name, r in run["calls"].items():
+        _require(r["rows"] and r["csv_rows"] == len(r["rows"]), f"executor {name}: CSV rows")
+        for row in r["rows"]:
+            nums = [v for v in row.values() if isinstance(v, numbers.Real)]
+            nums += [x for v in row.values() if isinstance(v, list) for x in v]
+            _require(all(np.isfinite(float(v)) for v in nums),
+                     f"executor {name}: non-finite values in {row}")
+            _require(row["Quality Flag"] in ("ok", "off_oracle", "degenerate"),
+                     f"executor {name}: unflagged row {row}")
+    _require(not any(run["counts"].values()),
+             f"executors path launched kernels: {run['counts']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: torch.cuda.is_available() is False; this script "
@@ -2042,6 +2352,13 @@ def main() -> int:
     check_stopping(stopping)
     cli_run = drive_cli(device)
     check_cli(cli_run)
+    check_sdenet_capture(device)
+    sde = drive_sdenet(device)
+    check_sdenet(sde)
+    surface = drive_surface(device)
+    check_surface(surface)
+    execs = drive_executors(device)
+    check_executors(execs)
 
     print("training rate: " + json.dumps(time_training(device)))
     print("training iteration (traced, captured chunk): " + json.dumps(trace_iteration(device)))
@@ -2060,6 +2377,12 @@ def main() -> int:
         {name: {"seconds": r["seconds"], "wall_time_s": r["summary"]["wall_time_s"],
                 "iters_per_sec": r["summary"]["iters_per_sec"]}
          for name, r in cli_run["calls"].items()}))
+    print("SDENet rate beside FC (f32 autograd net_u, M = 100): "
+          + json.dumps(time_sdenet(device)))
+    print("surface run (wall seconds with start-up, training seconds, it/s): " + json.dumps(
+        {k: surface[k] for k in ("seconds", "train_s", "iterations", "it_per_s")}))
+    print("executors (seconds): " + json.dumps(
+        {name: r["seconds"] for name, r in execs["calls"].items()}))
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
@@ -2068,7 +2391,8 @@ def main() -> int:
     k4.update(time_k4(device)["basket"])  # the basket path's shape
 
     paths = {"training": train, "serving": run, "basket": basket, "harness": harness,
-             "stopping": stopping, "cli": cli_run}
+             "stopping": stopping, "cli": cli_run, "sdenet": sde, "surface": surface,
+             "executors": execs}
 
     def launches(name, traced_names=()):
         """The kernel's launches on each path: on the training, basket and

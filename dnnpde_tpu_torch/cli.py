@@ -8,9 +8,10 @@
 Trains on the first CUDA card (``main(argv, device="cpu")`` trains on the
 CPU), grades the learned Y0 against the problem's oracle, and writes the
 loss and prediction plots and ``summary.json`` to ``--out``. The flags,
-their defaults and the summary's keys are the JAX CLI's. ``--surface``
-(the Heston surface executor) and ``--dp`` (data parallelism) are not
-ported yet and raise ``NotImplementedError``. Without matplotlib the plots
+their defaults and the summary's keys are the JAX CLI's. ``--problem heston
+--surface`` runs the Heston surface executor instead (exit code 0 exactly
+when the IV smile's ``ok`` holds). ``--dp`` (data parallelism) is not
+ported yet and raises ``NotImplementedError``. Without matplotlib the plots
 are written as ``.npz`` arrays (``evals/plots.py``).
 """
 
@@ -146,6 +147,51 @@ def build_parser() -> argparse.ArgumentParser:
                         "flag explicitly to override it")
     return p
 
+
+# Parser defaults that --surface re-resolves to the surface recipe when the
+# user did not override them (SurfaceConfig holds the recipe).
+_SURFACE_RESOLVED = {
+    "M": 100, "N": 50, "width": 256, "depth": 4, "x0_scale": 0.0,
+    "objective": "global", "heston_output": "bs", "iters": [2000, 500],
+    "seed": 42,
+}
+
+
+def _surface_main(args, device) -> int:
+    """--surface: map the CLI's flags onto SurfaceConfig (a flag at its
+    parser default defers to the recipe; ``--iters A B`` sets the budget
+    A + B) and run HestonSurfaceExecutor on ``device``. Returns 0 exactly
+    when the IV smile's ``ok`` holds."""
+    from dnnpde_tpu_torch.experiments import HestonSurfaceExecutor, SurfaceConfig
+
+    if args.problem != "heston":
+        raise SystemExit("--surface requires --problem heston")
+    cfg_kwargs = {}
+    for arg_name, cfg_name in (
+        ("M", "M"), ("N", "N"), ("width", "width"), ("depth", "depth"),
+        ("x0_scale", "x0_scale"), ("objective", "objective"),
+        ("heston_output", "output_mode"), ("seed", "seed"),
+    ):
+        value = getattr(args, arg_name)
+        if value != _SURFACE_RESOLVED[arg_name]:
+            cfg_kwargs[cfg_name] = value
+    if args.iters != _SURFACE_RESOLVED["iters"]:
+        cfg_kwargs["budget"] = int(sum(args.iters))
+    if args.ema_decay is not None:
+        cfg_kwargs["ema_decay"] = args.ema_decay
+    if args.x0_scale_v is not None:
+        cfg_kwargs["x0_scale_v"] = args.x0_scale_v
+    cfg = SurfaceConfig(**cfg_kwargs)
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    report = HestonSurfaceExecutor(cfg, str(out), device=device).execute()
+    smile = next(r for r in report.rows if r["kind"] == "iv_smile")
+    if not args.quiet:
+        print(json.dumps({k: smile[k] for k in (
+            "mean_abs_iv_err_volpts", "max_abs_iv_err_volpts",
+            "atm_iv_err_volpts", "ok", "run_time")}))
+    return 0 if smile["ok"] else 1
 
 
 def make_problem(args):
@@ -301,15 +347,13 @@ def main(argv=None, device=None) -> int:
 
     # The JAX CLI's DNNPDE_COMPILATION_CACHE names XLA's persistent cache;
     # nothing here compiles through XLA, so the variable has no counterpart.
+    device = default_device(device)
     if args.surface:
-        raise NotImplementedError(
-            "--surface (experiments.HestonSurfaceExecutor) is not ported yet "
-            "(ROADMAP.md Queue 1: experiments/executors.py)")
+        return _surface_main(args, device)
     if args.dp:
         raise NotImplementedError(
             "--dp (data parallelism over devices) is not ported yet "
             "(ROADMAP.md Queue 1: parallel/)")
-    device = default_device(device)
 
     problem = make_problem(args)
     if args.objective == "global" and (

@@ -1,7 +1,8 @@
 """Evaluation layer ported so far: greeks, error metrics, prediction
 sampling, the policy value of optimal-stopping nets, the neural control
-variate and the plots. The rest of the JAX package's ``evals`` is listed in
-ROADMAP.md, Queue 1."""
+variate, the plots, the results reports and the stability analysis. The
+rest of the JAX package's ``evals`` (sensitivity, correlation analysis) is
+listed in ROADMAP.md, Queue 1."""
 
 from dnnpde_tpu_torch.evals.control_variate import (
     NeuralCVValue,
@@ -22,6 +23,8 @@ from dnnpde_tpu_torch.evals.policy_value import (
 )
 from dnnpde_tpu_torch.evals.plots import TrainingPlot, figsize
 from dnnpde_tpu_torch.evals.predictions import PredictionGenerator, PredictionResult
+from dnnpde_tpu_torch.evals.reports import RESULT_COLUMNS, ResultsReport, quality_row
+from dnnpde_tpu_torch.evals.stability import StabilityCheck
 
 __all__ = [
     "NeuralCVValue",
@@ -35,6 +38,10 @@ __all__ = [
     "squared_errors",
     "PredictionGenerator",
     "PredictionResult",
+    "RESULT_COLUMNS",
+    "ResultsReport",
+    "quality_row",
+    "StabilityCheck",
     "compute_greeks",
     "heston_greeks",
     "learned_price_surface",

@@ -4,6 +4,12 @@ counterpart of ``dnnpde_tpu/evals/greeks.py``.
 delta is the full ∇ₓu (the solver's Z process) and gamma the diagonal of
 the input Hessian, both through ``problem.transform_u`` as in training:
 ``torch.func.jacfwd`` of ``torch.func.grad`` per sample, under ``vmap``.
+
+A stochastic net (``SDENet``) is evaluated as JAX evaluates it here: each
+sample as a batch of one under the fixed evaluation noise, so every sample
+sees the same noise row. That row (``net.eval_noise(1, device)``, the noise
+a batch-of-one evaluation draws) is drawn once, outside the ``vmap``, and
+passed to the net, so nothing draws inside the ``vmap``.
 """
 
 from __future__ import annotations
@@ -11,6 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.func import grad, jacfwd, vmap
+
+from dnnpde_tpu_torch.nets import SDENet
+
 
 def _f32(trainer, a) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32).to(trainer.device)
@@ -29,9 +38,11 @@ def compute_greeks(
     problem = trainer.problem
     t = _f32(trainer, t).reshape(-1, 1)
     X = _f32(trainer, X).reshape(-1, problem.dim)
+    noise = net.eval_noise(1, X.device) if isinstance(net, SDENet) else None
 
     def u_single(x, ti):
-        raw = net(torch.cat([ti, x])[None, :])
+        inp = torch.cat([ti, x])[None, :]
+        raw = net(inp) if noise is None else net(inp, noise)
         return problem.transform_u(ti[None, :], x[None, :], raw)[0, 0]
 
     def per_sample(x, ti):

@@ -5,11 +5,12 @@ from dnnpde_tpu_torch.nets.networks import (
     Dense,
     NaisNet,
     ResNet,
+    SDENet,
     VerletNet,
     build_network,
 )
 
 __all__ = [
-    "Dense", "MLP", "NaisNet", "ResNet", "VerletNet", "build_network", "get_activation",
+    "Dense", "MLP", "NaisNet", "ResNet", "SDENet", "VerletNet", "build_network", "get_activation",
     "relu", "sine", "tanh", "xavier_uniform",
 ]

@@ -1,8 +1,7 @@
 """Networks of the PyTorch port, the counterpart of
 ``dnnpde_tpu/nets/networks.py``: the plain fully-connected net (``MLP``),
 the residual nets ``ResNet`` and ``NaisNet`` (``ResNet(stable=True)``) and
-the leapfrog ``VerletNet``. The stochastic-depth ``SDENet`` is not ported
-yet and raises NotImplementedError.
+the leapfrog ``VerletNet`` and the stochastic-depth ``SDENet``.
 
 The NAIS-Net projection builds ``A = clip_F(WᵀW) + εI`` from the
 ``nn.Linear`` weight ``W`` (the transpose of the flax kernel ``K``, so this
@@ -246,6 +245,82 @@ class VerletNet(nn.Module):
         return self.out(out)
 
 
+class SDENet(nn.Module):
+    """Stochastic-depth residual net (neural-SDE flavour). Per hidden block,
+    with the bias-free (width, 1) "brownian" kernel ``K`` (JAX layout) and
+    ``A = KKᵀ + εI``:
+
+      out ← shortcut + h·act(W out) + √h · (noise @ A)
+
+    where the noise is U[0, 1) of the block's (batch, width) shape, one draw
+    per evaluation and per block, in block order. ``forward(x, noise)``
+    takes those draws as a list (see :meth:`draw_noise`); with
+    ``noise=None`` the blocks draw from a fresh ``torch.Generator`` seeded
+    0 on x's device, the fixed noise of the evaluation paths (JAX's
+    ``PRNGKey(0)``), so an evaluation repeats exactly from call to call.
+    ``deterministic=True`` puts 0.5 in place of the noise.
+    ``brownian[i]`` is JAX's ``brownian_kernel_{i}``."""
+
+    def __init__(
+        self, layers: Sequence[int], activation: str | Activation = "sine", gain: float = 1.0,
+        h: float = 0.1, eps: float = 1e-4, deterministic: bool = False, compute_dtype=None,
+        generator: torch.Generator | None = None, device=None,
+    ):
+        super().__init__()
+        device = default_device(device)
+        self.layers = tuple(int(w) for w in layers)
+        self.activation = activation
+        self.act = get_activation(activation)
+        self.h, self.eps, self.deterministic = h, eps, deterministic
+        self.compute_dtype = dt = _dtype(compute_dtype)
+        kw = dict(gain=gain, generator=generator, device=device)
+        # creation order as flax's: the input layer, then each block's Dense
+        # and brownian kernel, then the head
+        self.inp = Dense(self.layers[0], self.layers[1], dtype=dt, **kw)
+        blocks, brownian = [], []
+        for prev, width in zip(self.layers[1:-2], self.layers[2:-1]):
+            blocks.append(Dense(prev, width, dtype=dt, **kw))
+            brownian.append(nn.Parameter(xavier_uniform(gain)((prev, 1), generator).to(device)))
+        self.blocks = nn.ModuleList(blocks)
+        self.brownian = nn.ParameterList(brownian)
+        self.out = Dense(self.layers[-2], self.layers[-1], **kw)
+
+    def noise_shapes(self, batch: int) -> list[tuple[int, int]]:
+        """The shape of each block's draw, in block order."""
+        return [(batch, w) for w in self.layers[1:-2]]
+
+    def draw_noise(self, draw, batch: int) -> list[torch.Tensor]:
+        """One evaluation's noise: ``draw(shape)`` (U[0, 1)) per block, in
+        block order. Every draw of the port's SDENet paths goes through the
+        ``draw`` its caller passes here."""
+        return [draw(shape) for shape in self.noise_shapes(batch)]
+
+    def eval_noise(self, batch: int, device) -> list[torch.Tensor] | None:
+        """The fixed noise of an evaluation of ``batch`` rows, drawn from a
+        fresh generator seeded 0 on ``device`` (None for a deterministic
+        net)."""
+        if self.deterministic:
+            return None
+        gen = torch.Generator(device=device).manual_seed(0)
+        return self.draw_noise(lambda shape: torch.rand(shape, generator=gen, device=device),
+                               batch)
+
+    def forward(self, x: torch.Tensor, noise=None) -> torch.Tensor:
+        if noise is None:
+            noise = self.eval_noise(x.shape[0], x.device)
+        out = self.act(self.inp(x))
+        for i, (block, kernel) in enumerate(zip(self.blocks, self.brownian)):
+            shortcut = out
+            out = block(out)
+            a = kernel @ kernel.t() + self.eps * torch.eye(
+                kernel.shape[0], dtype=kernel.dtype, device=kernel.device)
+            eps_i = torch.full_like(shortcut, 0.5) if self.deterministic else noise[i]
+            out = shortcut + self.h * self.act(out) + math.sqrt(self.h) * (eps_i @ a)
+        if self.compute_dtype is not None:
+            out = out.float()
+        return self.out(out)
+
+
 _MODES = {
     "fc": MLP,
     "mlp": MLP,
@@ -254,8 +329,8 @@ _MODES = {
     "resnet": ResNet,
     "verlet": VerletNet,
     "verletnet": VerletNet,
+    "sdenet": SDENet,
 }
-_LATER_MODES = ("sdenet",)
 
 
 def build_network(
@@ -263,18 +338,12 @@ def build_network(
     gain: float = 1.0, **kwargs,
 ) -> nn.Module:
     """Factory: network by ``mode`` string, in the reference's spellings:
-    "FC"/"MLP", "Naisnet"/"NAIS-Net", "Resnet" (``stable=False``), "Verlet".
-    ``kwargs`` go to the net (``compute_dtype``, ``generator``, ``device``)."""
+    "FC"/"MLP", "Naisnet"/"NAIS-Net", "Resnet" (``stable=False``), "Verlet",
+    "SDEnet". ``kwargs`` go to the net (``compute_dtype``, ``generator``,
+    ``device``; SDENet's ``h``, ``eps``, ``deterministic``)."""
     key = mode.lower()
-    if key in _LATER_MODES:
-        raise NotImplementedError(
-            f"network mode {mode!r} is not ported yet (ROADMAP.md Queue 1, 'Other nets': "
-            "its noise needs the solver's stochastic-net threading)"
-        )
     if key not in _MODES:
-        raise ValueError(
-            f"Unknown network mode {mode!r}; expected one of {sorted(set(_MODES) | set(_LATER_MODES))}"
-        )
+        raise ValueError(f"Unknown network mode {mode!r}; expected one of {sorted(set(_MODES))}")
     get_activation(activation)  # validate eagerly, not at the first call
     cls = _MODES[key]
     if key == "resnet":

@@ -37,7 +37,7 @@ from dnnpde_tpu_torch.numerics.heston import (
     heston_mc_price_ii,
     heston_price_surface,
 )
-from dnnpde_tpu_torch.numerics.implied_vol import bs_vega
+from dnnpde_tpu_torch.numerics.implied_vol import bs_vega, implied_vol
 from dnnpde_tpu_torch.numerics.longstaff_schwartz import LSMCValue, basis_size, lsmc_value
 from dnnpde_tpu_torch.numerics.monte_carlo import (
     basket_call_mc,
@@ -78,6 +78,7 @@ __all__ = [
     "hjb_exact_mc",
     "gauss_legendre",
     "bs_vega",
+    "implied_vol",
     "crr_binomial",
     "DiscreteBSDEValue",
     "discrete_bsde_surface",

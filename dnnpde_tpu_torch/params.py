@@ -11,7 +11,9 @@ Flax names a net's layers by their order of creation, per class. In a
 injections (``stable=True``, beside ``_StableBlockDense_0`` ...
 ``_StableBlockDense_{n-1}``), and ``Dense_{n+1}`` is the head. A
 ``VerletNet`` holds ``Dense_0`` (input), ``Dense_1`` (head) and
-``verlet_kernel_i``/``verlet_bias_i`` directly.
+``verlet_kernel_i``/``verlet_bias_i`` directly. An ``SDENet`` holds
+``Dense_0`` (input), ``Dense_1`` ... ``Dense_n`` (the blocks), ``Dense_{n+1}``
+(head) and ``brownian_kernel_i`` (width, 1) directly.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.nets.networks import MLP, Dense, NaisNet, ResNet, VerletNet
+from dnnpde_tpu_torch.nets.networks import MLP, Dense, NaisNet, ResNet, SDENet, VerletNet
 
 
 def _index(name: str) -> int:
@@ -40,14 +42,17 @@ def _set_dense(layer: Dense, leaf) -> None:
 
 
 def from_flax_params(
-    tree, activation="sine", *, mode: str = "FC", compute_dtype=None, device=None
+    tree, activation="sine", *, mode: str = "FC", compute_dtype=None, device=None,
+    **net_kwargs,
 ) -> torch.nn.Module:
     """A port net holding the weights of a JAX parameter tree whose leaves are
     numpy arrays (``{"params": {...}}``): an ``MLP`` for ``mode`` "FC"; for
     a ``ResNet``/``NaisNet``/``VerletNet`` tree (``mode`` "Resnet",
     "Naisnet" or "Verlet"; a tree with ``_StableBlockDense_*`` or
     ``verlet_kernel_*`` leaves is read as NAIS-Net or Verlet whatever
-    ``mode`` says) the matching residual net."""
+    ``mode`` says) the matching residual net; for an ``SDENet`` tree
+    (``brownian_kernel_*`` leaves) an SDENet, with ``net_kwargs`` (``h``,
+    ``eps``, ``deterministic``) passed to it."""
     inner = tree["params"]
     names = _dense_names(inner)
     key = mode.lower()
@@ -55,6 +60,8 @@ def from_flax_params(
         key = "naisnet"
     elif any(n.startswith("verlet_kernel_") for n in inner):
         key = "verlet"
+    elif any(n.startswith("brownian_kernel_") for n in inner):
+        key = "sdenet"
     kw = dict(compute_dtype=compute_dtype, device=device)
     shapes = [np.shape(inner[n]["Dense_0"]["kernel"]) for n in names]
     if key in ("fc", "mlp"):
@@ -74,6 +81,16 @@ def from_flax_params(
             for i in range(n_blocks):
                 net.kernels[i].copy_(_f32(inner[f"verlet_kernel_{i}"]))
                 net.biases[i].copy_(_f32(inner[f"verlet_bias_{i}"]))
+        return net
+    if key == "sdenet":
+        n_blocks = sum(n.startswith("brownian_kernel_") for n in inner)
+        net = SDENet([shapes[0][0]] + [s[1] for s in shapes], activation, **kw, **net_kwargs)
+        with torch.no_grad():
+            _set_dense(net.inp, inner[names[0]])
+            _set_dense(net.out, inner[names[-1]])
+            for i in range(n_blocks):
+                _set_dense(net.blocks[i], inner[names[i + 1]])
+                net.brownian[i].copy_(_f32(inner[f"brownian_kernel_{i}"]))
         return net
     if key not in ("naisnet", "nais-net", "resnet"):
         raise ValueError(f"cannot read a {mode!r} parameter tree")

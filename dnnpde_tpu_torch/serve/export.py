@@ -12,7 +12,9 @@ loading it needs this package.
 An FC net without a transform takes the fused f32 ``mlp_u_z`` (its weights
 in the JAX layout, ``Ws``/``bs``); kernel K1 (bf16 dot operands) serves
 ``Trainer.predict`` under ``SolverConfig(fused_net_u="cuda")``, as the
-Pallas K1 does in JAX. Stochastic nets are not ported yet.
+Pallas K1 does in JAX. A stochastic net (``SDENet``) is served under the
+fixed noise of the evaluation paths, as JAX serves it with a fixed key: the
+served (u, Z) are ``Trainer.evaluate_u``'s, and repeat from call to call.
 """
 
 from __future__ import annotations
@@ -23,7 +25,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.nets.networks import MLP, NaisNet, ResNet, VerletNet, build_network
+from dnnpde_tpu_torch.nets.networks import (
+    MLP,
+    NaisNet,
+    ResNet,
+    SDENet,
+    VerletNet,
+    build_network,
+)
 from dnnpde_tpu_torch.ops.fused_net_u import _ACT_DERIVS, mlp_u_z
 from dnnpde_tpu_torch.params import extract_mlp_params
 from dnnpde_tpu_torch.pde.base import PDEProblem
@@ -32,7 +41,8 @@ from dnnpde_tpu_torch.solver.bsde import make_net_u
 
 Tensor = torch.Tensor
 
-_NET_MODES = {MLP: "FC", NaisNet: "Naisnet", ResNet: "Resnet", VerletNet: "Verlet"}
+_NET_MODES = {MLP: "FC", NaisNet: "Naisnet", ResNet: "Resnet", VerletNet: "Verlet",
+              SDENet: "SDEnet"}
 
 
 def _problem_classes() -> dict:
@@ -58,13 +68,11 @@ def _problem_record(transform) -> Optional[dict]:
                                       for f in dataclasses.fields(problem)}}
 
 
-def export_solution(net: torch.nn.Module, dim: int, transform=None,
-                    stochastic: bool = False) -> dict:
+def export_solution(net: torch.nn.Module, dim: int, transform=None) -> dict:
     """The artifact of ``net``'s solution for a ``dim``-dimensional state, as
     plain data. ``transform``: the problem's ``transform_u`` (its problem is
-    stored), or None."""
-    if stochastic:
-        raise NotImplementedError("serving stochastic nets is not ported yet")
+    stored), or None. An SDENet's ``h``, ``eps`` and ``deterministic`` are
+    stored with its weights."""
     mode = _NET_MODES.get(type(net))
     if mode is None:
         raise NotImplementedError(f"cannot serve a {type(net).__name__}")
@@ -83,6 +91,8 @@ def export_solution(net: torch.nn.Module, dim: int, transform=None,
         blob["bs"] = [b.detach().cpu() for b in bs]
     else:
         blob["state"] = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    if mode == "SDEnet":
+        blob["net_kwargs"] = {"h": net.h, "eps": net.eps, "deterministic": net.deterministic}
     return blob
 
 
@@ -177,7 +187,8 @@ def load_solution(path: str, device=None) -> ServedSolution:
                 layer.linear.weight.copy_(w.t())
                 layer.linear.bias.copy_(b)
     elif mode != "FC":
-        net = build_network(mode, blob["layers"], blob["activation"], **init)
+        net = build_network(mode, blob["layers"], blob["activation"], **init,
+                            **blob.get("net_kwargs", {}))
         net.load_state_dict(blob["state"])
     if net is not None:
         net.requires_grad_(False)

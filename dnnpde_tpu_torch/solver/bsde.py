@@ -37,7 +37,7 @@ from dnnpde_tpu_torch.runtime import OnDevice
 
 Tensor = torch.Tensor
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, item 5: stochastic nets, remat_policy, unroll)"
+_LATER = "is not ported yet (ROADMAP.md Queue 1, item 6: remat_policy, unroll)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +68,14 @@ class SolverConfig:
       and the zero-mean control corr_j = (sg[σᵀZ]·ΔW)·ΔW_j/Δt − sg[(σᵀZ)_j];
       the JAX config's comments give the derivation.
     z_match_mask: per-Brownian-component weights of that term (None = 1).
+    stochastic_net: the net draws noise at every evaluation (``SDENet``):
+      the loss draws one evaluation's noise (``net.draw_noise``) before each
+      of the N + 1 evaluations, in order, from the ``noise`` callable it is
+      given; the local objective's target at a step sees that step's noise.
 
-    ``stochastic_net``, ``unroll`` and ``remat_policy`` exist for parity
-    with the JAX config; any value but their default raises
-    ``NotImplementedError`` in :func:`make_loss_fn`.
+    ``unroll`` and ``remat_policy`` exist for parity with the JAX config;
+    any value but their default raises ``NotImplementedError`` in
+    :func:`make_loss_fn`.
     """
 
     remat: bool = True
@@ -95,23 +99,25 @@ class RolloutResult(NamedTuple):
 
 
 def make_net_u(net: torch.nn.Module, transform: Optional[Callable] = None) -> Callable:
-    """Build net_u(t, X) → (u, Z) for ``net`` with Z = ∇ₓu by one
-    ``torch.autograd.grad`` of Σu.
+    """Build net_u(t, X, noise=None) → (u, Z) for ``net`` with Z = ∇ₓu by
+    one ``torch.autograd.grad`` of Σu.
 
     ``transform`` ``(t, X, raw) → u`` is the problem's output
     parametrization (pass ``problem.transform_u``); it is applied before
     differentiation, so Z sees its gradient. None is the identity.
 
     When grad mode is on, Z keeps its graph (``create_graph``) so a loss on Z
-    can be differentiated; otherwise u and Z come back detached. Stochastic
-    nets are not ported yet.
+    can be differentiated; otherwise u and Z come back detached. ``noise``
+    is a stochastic net's per-block noise (``SDENet.draw_noise``); None
+    evaluates it under the fixed noise of the evaluation paths.
     """
 
-    def net_u(t: Tensor, X: Tensor):
+    def net_u(t: Tensor, X: Tensor, noise=None):
         create_graph = torch.is_grad_enabled()
         with torch.enable_grad():
             x = X if X.requires_grad else X.detach().requires_grad_(True)
-            u = net(torch.cat([t, x], dim=-1))
+            inp = torch.cat([t, x], dim=-1)
+            u = net(inp) if noise is None else net(inp, noise)
             if transform is not None:
                 u = transform(t, x, u)
             (Z,) = torch.autograd.grad(u.sum(), x, create_graph=create_graph)
@@ -156,7 +162,6 @@ def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
             "global summed-residual rollout has no per-step target to clamp"
         )
     later = {
-        "stochastic_net": config.stochastic_net,
         "remat_policy": config.remat_policy is not None,
         "unroll": config.unroll != 1,
     }
@@ -166,7 +171,7 @@ def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
 
 
 def _bind_net_u(problem: PDEProblem, net, config: SolverConfig) -> Callable:
-    """module → net_u(t, X) for one loss evaluation. The fused path extracts
+    """module → net_u(t, X, noise=None) for one loss evaluation. The fused path extracts
     the weights once here, not at each of the N+1 evaluations."""
     if not config.fused_net_u:
         return lambda module: make_net_u(module, transform=problem.transform_u)
@@ -174,7 +179,7 @@ def _bind_net_u(problem: PDEProblem, net, config: SolverConfig) -> Callable:
     from dnnpde_tpu_torch.ops.fused_net_u import check_fused, fused_u_z
     from dnnpde_tpu_torch.params import extract_mlp_params
 
-    if problem.has_output_transform or not isinstance(net, MLP):
+    if problem.has_output_transform or config.stochastic_net or not isinstance(net, MLP):
         raise ValueError("fused_net_u supports plain MLPs without output transform")
     backend = "torch" if config.fused_net_u is True else str(config.fused_net_u)
     act = check_fused(net.activation, backend)
@@ -184,7 +189,8 @@ def _bind_net_u(problem: PDEProblem, net, config: SolverConfig) -> Callable:
         Ws, bs = extract_mlp_params(module)
         if len(Ws) != n_dense:
             raise ValueError(f"net has {len(Ws)} layers, expected {n_dense}")
-        return functools.partial(fused_u_z, Ws, bs, act=act, backend=backend)
+        fused = functools.partial(fused_u_z, Ws, bs, act=act, backend=backend)
+        return lambda t, X, noise=None: fused(t, X)  # a plain MLP takes no noise
 
     return bind
 
@@ -194,8 +200,8 @@ def make_loss_fn(
     net: torch.nn.Module,
     config: SolverConfig = SolverConfig(),
 ) -> Callable:
-    """Build loss(net, ts, dWs, X0, paths=True, target_params=None) →
-    RolloutResult.
+    """Build loss(net, ts, dWs, X0, paths=True, target_params=None,
+    noise=None) → RolloutResult.
 
     ``net`` here gives the structure (``layers``, ``activation``); the
     returned function evaluates the module it is given (the JAX loss takes
@@ -211,6 +217,10 @@ def make_loss_fn(
         ``problem.transform_u``, no Z) gives the local objective's targets
         in place of the trained net's own (e.g. the Trainer's EMA shadow
         under ``objective="local_ema"``); it gets no gradient.
+      noise: with ``config.stochastic_net``, ``noise(shape)`` → U[0, 1) of
+        that shape on the batch's device (the Trainer's draws from its
+        generator); None draws from a fresh generator seeded 0 (JAX's
+        default ``PRNGKey(0)``). Ignored otherwise.
     """
     _check_config(problem, config)
     bind = _bind_net_u(problem, net, config)
@@ -222,10 +232,14 @@ def make_loss_fn(
         None if config.z_match_mask is None
         else torch.tensor(config.z_match_mask, dtype=torch.float32))
 
-    def u_target(target, t, X):
-        """u-only evaluation under the target parameters, detached."""
+    stochastic = config.stochastic_net
+
+    def u_target(target, t, X, eps):
+        """u-only evaluation under the target parameters, detached, under
+        the step's noise ``eps``."""
+        inp = torch.cat([t, X], dim=-1)
         with torch.no_grad():
-            return problem.transform_u(t, X, target(torch.cat([t, X], dim=-1)))
+            return problem.transform_u(t, X, target(inp) if eps is None else target(inp, eps))
 
     def path_weights(X0):
         if config.path_weight_fn is None:
@@ -278,13 +292,14 @@ def make_loss_fn(
         )
         return X1, Y1_tilde
 
-    def step(net_u, target, w, ex_flag, t0, X0, Ytilde0, t1, dW, *zstate):
+    def step(net_u, target, w, ex_flag, eps, t0, X0, Ytilde0, t1, dW, *zstate):
         """One rollout step from the carry (X, Ỹ[, Z-matching state]): the
         residual at t0 against the carried prediction, then the next carry.
-        ``ex_flag`` (a Python bool) marks an exercise date."""
-        Y0, Z0 = net_u(t0, X0)
+        ``ex_flag`` (a Python bool) marks an exercise date; ``eps`` is the
+        step's noise (None for a deterministic net)."""
+        Y0, Z0 = net_u(t0, X0, eps)
         if local:
-            tgt = Y0 if target is None else u_target(target, t0, X0)
+            tgt = Y0 if target is None else u_target(target, t0, X0, eps)
             if early and ex_flag:
                 # the Snell clamp: the target is the better of exercising now
                 # and continuing; the net's u stays the continuation
@@ -300,8 +315,8 @@ def make_loss_fn(
         return (X1, Y1_tilde, residual, Y0, *zstate)
 
     def loss_fn(module: torch.nn.Module, ts: Tensor, dWs: Tensor, X0: Tensor,
-                paths: bool = True, target_params: Optional[torch.nn.Module] = None
-                ) -> RolloutResult:
+                paths: bool = True, target_params: Optional[torch.nn.Module] = None,
+                noise: Optional[Callable] = None) -> RolloutResult:
         if target_params is not None and not local:
             raise ValueError("target_params requires objective='local'")
         N = dWs.shape[0]
@@ -312,23 +327,34 @@ def make_loss_fn(
                 "(the maturity must be a date)"
             )
         net_u = bind(module)
+        if stochastic and noise is None:
+            gen = torch.Generator(device=X0.device).manual_seed(0)
+            noise = lambda shape: torch.rand(shape, generator=gen, device=X0.device)  # noqa: E731
+        M = X0.shape[0]
+
+        def draw():
+            """The next evaluation's noise, drawn outside any recomputed step."""
+            return module.draw_noise(noise, M) if stochastic else None
+
         w = path_weights(X0)
         # step 0, peeled: Y0 comes from this evaluation
-        Y0, Z0 = net_u(ts[0], X0)
+        eps = draw()
+        Y0, Z0 = net_u(ts[0], X0, eps)
         X, Ytilde = em_step(ts[0], X0, Y0, Z0, ts[1], dWs[0])
         zstate = ()
         if zmatch:
-            tgt0 = Y0 if target_params is None else u_target(target_params, ts[0], X0)
+            tgt0 = Y0 if target_params is None else u_target(target_params, ts[0], X0, eps)
             zstate = z_match_state(ts[0], X0, Y0, Z0, tgt0, ts[1], dWs[0])
         Xs, Ys, residuals = [X0, X], [Y0], []
         for n in range(1, N):
             # grid index n is an exercise date when k_ex divides it; the
             # terminal index N carries no clamp (its target is g itself)
-            body = functools.partial(step, net_u, target_params, w, n % k_ex == 0)
+            body = functools.partial(step, net_u, target_params, w, n % k_ex == 0, draw())
             if config.remat:
-                # the step draws no random numbers, so there is no RNG state to
-                # keep for the recompute (reading it is not allowed while a CUDA
-                # graph captures the training iteration)
+                # the step draws no random numbers (a stochastic net's noise is
+                # drawn above and bound in), so there is no RNG state to keep for
+                # the recompute (reading it is not allowed while a CUDA graph
+                # captures the training iteration)
                 body = functools.partial(checkpoint, body, use_reentrant=False,
                                          preserve_rng_state=False)
             X, Ytilde, residual, Yn, *zstate = body(ts[n], X, Ytilde, ts[n + 1], dWs[n], *zstate)
@@ -337,7 +363,7 @@ def make_loss_fn(
                 Ys.append(Yn)
             residuals.append(residual)
         # the final evaluation closes the rollout: last residual + terminal penalties
-        YN, ZN = net_u(ts[-1], X)
+        YN, ZN = net_u(ts[-1], X, draw())
         if local:
             # the last step's target is the payoff itself
             final_resid = (problem.g(X).detach() - Ytilde) ** 2
@@ -362,16 +388,16 @@ def make_path_loss_fn(
     net: torch.nn.Module,
     config: SolverConfig = SolverConfig(),
 ) -> Callable:
-    """Reference-shaped API: loss(net, t, W, Xi) with t (M, N+1, 1),
-    W (M, N+1, D), Xi (1, D) or (M, D)."""
+    """Reference-shaped API: loss(net, t, W, Xi, noise=None) with t
+    (M, N+1, 1), W (M, N+1, D), Xi (1, D) or (M, D)."""
     loss_fn = make_loss_fn(problem, net, config)
 
-    def path_loss(module, t: Tensor, W: Tensor, Xi) -> RolloutResult:
+    def path_loss(module, t: Tensor, W: Tensor, Xi, noise=None) -> RolloutResult:
         M = t.shape[0]
         Xi = torch.as_tensor(Xi, dtype=torch.float32, device=t.device).reshape(-1, problem.dim)
         X0 = Xi.expand(M, problem.dim) if Xi.shape[0] == 1 else Xi
         ts = t.transpose(0, 1)
         dWs = torch.diff(W, dim=1).transpose(0, 1)
-        return loss_fn(module, ts, dWs, X0)
+        return loss_fn(module, ts, dWs, X0, noise=noise)
 
     return path_loss

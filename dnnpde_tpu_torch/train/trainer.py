@@ -28,6 +28,13 @@ counterpart of ``dnnpde_tpu/train/trainer.py``.
   update); ``x0_sampler`` draws a fresh X0 batch every iteration from the
   trainer's generator, after the increments.
 
+- ``mode="SDEnet"`` trains a stochastic net: every net evaluation of the
+  loss draws its noise from the trainer's generator (``_noise``), after the
+  increments and X0, so a captured iteration draws inside the graph what
+  the eager step would. ``predict``, ``evaluate_u``, greeks and serving
+  evaluate it under the fixed noise of the evaluation paths and leave the
+  generator alone.
+
 - LBFGS (``optimizers.LBFGS``, optax's zoom-linesearch LBFGS) trains
   eagerly on every device: its linesearch re-evaluates the loss on the
   iteration's batch until a data-dependent condition holds, which a CUDA
@@ -110,6 +117,26 @@ def _clone_state(state: dict) -> dict:
             for k, v in state.items()}
 
 
+class _NoiseTape:
+    """A stochastic net's noise for one batch that is evaluated more than
+    once (LBFGS's linesearch, ``polish``'s frozen batch): the i-th draw after
+    ``rewind()`` is the i-th draw of the first pass, as the JAX Trainer
+    passes one key to every evaluation of the batch."""
+
+    def __init__(self, draw):
+        self.draw, self.tape, self.pos = draw, [], 0
+
+    def __call__(self, shape) -> Tensor:
+        if self.pos == len(self.tape):
+            self.tape.append(self.draw(shape))
+        self.pos += 1
+        return self.tape[self.pos - 1]
+
+    def rewind(self) -> "_NoiseTape":
+        self.pos = 0
+        return self
+
+
 class _Chunk:
     """The training iteration of one (N, M, optimizer, features) on buffers
     that keep their addresses: the counterpart of the JAX Trainer's jitted
@@ -150,7 +177,8 @@ class Trainer:
       N: number of time steps.
       layers: net widths incl. input/output; default ``[D+1, 256×4, 1]``.
       mode / activation: network selection strings ("FC", "Naisnet",
-        "Resnet", "Verlet"; "Sine", "ReLU", "Tanh").
+        "Resnet", "Verlet", "SDEnet"; "Sine", "ReLU", "Tanh"). "SDEnet"
+        sets ``stochastic_net`` in the automatic config.
       Mm: refinement base; if set, the reference's coarse-to-fine N schedule
         (:class:`TimeStepRefinement`) is applied, one captured iteration per
         distinct N.
@@ -274,6 +302,7 @@ class Trainer:
                 "objective='local'", UserWarning, stacklevel=2)
         cfg_objective = "local" if self._local_ema else objective
         z_mask = None if z_match_mask is None else tuple(z_match_mask)
+        stochastic = mode.lower() == "sdenet"
         if solver_config is None:
             # Auto remat, the JAX package's rule: rematerialize once the
             # no-remat activation stash (N x M x width x 2 len(layers) x
@@ -283,7 +312,8 @@ class Trainer:
             itemsize = (getattr(torch, dtype) if isinstance(dtype, str) else dtype).itemsize
             act_bytes = self.N * self.M * max(self.layers) * (2 * len(self.layers)) * itemsize
             solver_config = SolverConfig(
-                remat=act_bytes > (1e9 if itemsize >= 4 else 6e9), objective=cfg_objective,
+                remat=act_bytes > (1e9 if itemsize >= 4 else 6e9), stochastic_net=stochastic,
+                objective=cfg_objective,
                 path_weight_fn=path_weight_fn, z_match_weight=float(z_match_weight),
                 z_match_mask=z_mask)
         else:
@@ -439,6 +469,11 @@ class Trainer:
             return torch.cat([half, half], dim=0)
         return self.x0_sampler(self.generator, self.M).to(self.dtype)
 
+    def _noise(self, shape) -> Tensor:
+        """U[0, 1) of ``shape`` from the generator: a stochastic net's noise
+        at a training evaluation, drawn after the batch's increments and X0."""
+        return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
+
     def _batch(self) -> tuple[Tensor, Tensor, Tensor]:
         """One training batch in the loss's layout: (ts, dWs, X0), the
         increments drawn before X0."""
@@ -479,14 +514,16 @@ class Trainer:
         params = self._params
         # local_ema: the shadow before this iteration's update is the target net
         target = self._ema if self._local_ema else None
+        lbfgs = isinstance(self._tx, LBFGS)
+        noise = _NoiseTape(self._noise) if lbfgs else self._noise
         res: RolloutResult = self.loss_fn(self.net, ts, dWs, X0, paths=paths,
-                                          target_params=target)
+                                          target_params=target, noise=noise)
         grads = torch.autograd.grad(res.loss, params)
         with torch.no_grad():
-            if isinstance(self._tx, LBFGS):
+            if lbfgs:
                 updates, state = self._tx.update(
                     grads, self._opt_state, params, value=res.loss,
-                    value_and_grad=self._value_and_grad(ts, dWs, X0, target))
+                    value_and_grad=self._value_and_grad(ts, dWs, X0, target, noise))
             else:
                 updates, state = self._tx.update(grads, self._opt_state, params)
             # the guard skips the WHOLE update on a non-finite loss, optimizer
@@ -505,9 +542,10 @@ class Trainer:
                     e.copy_(new if ok is None else torch.where(ok, new, e))
         return res._replace(loss=res.loss.detach(), Y0=res.Y0.detach())
 
-    def _value_and_grad(self, ts: Tensor, dWs: Tensor, X0: Tensor, target=None):
-        """``trial params -> (loss, grads)`` on this batch and target, for
-        LBFGS's linesearch: the trial values are copied into the net's
+    def _value_and_grad(self, ts: Tensor, dWs: Tensor, X0: Tensor, target=None,
+                        noise: Optional[_NoiseTape] = None):
+        """``trial params -> (loss, grads)`` on this batch, target and noise,
+        for LBFGS's linesearch: the trial values are copied into the net's
         parameters for the evaluation and the current ones copied back."""
         params = self._params
         current = [p.detach().clone() for p in params]
@@ -517,8 +555,8 @@ class Trainer:
                 for p, q in zip(params, trial):
                     p.copy_(q)
             with torch.enable_grad():
-                loss = self.loss_fn(self.net, ts, dWs, X0, paths=False,
-                                    target_params=target).loss
+                loss = self.loss_fn(self.net, ts, dWs, X0, paths=False, target_params=target,
+                                    noise=None if noise is None else noise.rewind()).loss
                 grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
                 for p, q in zip(params, current):
@@ -807,11 +845,16 @@ class Trainer:
                 X0 = self.x0_sampler(gen, M).to(self.dtype)
         else:
             X0 = p.x0.to(self.device, self.dtype).expand(M, p.dim)
-        return self._polish_on(ts, dWs, X0, n_iter, learning_rate, from_ema)
+        noise = _NoiseTape(
+            lambda shape: torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device))
+        return self._polish_on(ts, dWs, X0, n_iter, learning_rate, from_ema, noise)
 
     def _polish_on(self, ts: Tensor, dWs: Tensor, X0: Tensor, n_iter: int,
-                   learning_rate: Optional[float] = None, from_ema: bool = False) -> np.ndarray:
-        """:meth:`polish`'s LBFGS steps and bookkeeping on a given batch."""
+                   learning_rate: Optional[float] = None, from_ema: bool = False,
+                   noise: Optional[_NoiseTape] = None) -> np.ndarray:
+        """:meth:`polish`'s LBFGS steps and bookkeeping on a given batch (and,
+        for a stochastic net, one frozen noise tape; None: a fresh one from
+        the trainer's generator)."""
         params = self._params
         if from_ema:
             with torch.no_grad():
@@ -820,15 +863,18 @@ class Trainer:
         tx = LBFGS(learning_rate)
         state = tx.init(params)
         losses = []
+        noise = _NoiseTape(self._noise) if noise is None else noise
         with full_f32_matmul():
             for _ in range(n_iter):
                 with torch.enable_grad():
-                    loss = self.loss_fn(self.net, ts, dWs, X0, paths=False).loss
+                    loss = self.loss_fn(self.net, ts, dWs, X0, paths=False,
+                                        noise=noise.rewind()).loss
                     grads = torch.autograd.grad(loss, params)
                 loss = loss.detach()
                 with torch.no_grad():
-                    updates, state = tx.update(grads, state, params, value=loss,
-                                               value_and_grad=self._value_and_grad(ts, dWs, X0))
+                    updates, state = tx.update(
+                        grads, state, params, value=loss,
+                        value_and_grad=self._value_and_grad(ts, dWs, X0, noise=noise))
                     for q, u in zip(params, updates):
                         q.add_(u)
                 losses.append(loss)

@@ -110,10 +110,13 @@ def test_path_loss_shapes_and_value():
 def test_later_options_raise():
     prob, net = BlackScholesBarenblatt(D=D), from_flax_params(_case([D + 1, 8, 1])[1], "sine",
                                                                device="cpu")
-    for cfg in (SolverConfig(stochastic_net=True), SolverConfig(remat_policy="dots_saveable"),
-                SolverConfig(unroll=4)):
+    for cfg in (SolverConfig(remat_policy="dots_saveable"), SolverConfig(unroll=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_loss_fn(prob, net, cfg)
+    # stochastic nets are ported (test_torch_sdenet.py), but not on the fused path
+    make_loss_fn(prob, net, SolverConfig(stochastic_net=True))
+    with pytest.raises(ValueError, match="plain MLPs"):
+        make_loss_fn(prob, net, SolverConfig(stochastic_net=True, fused_net_u=True))
     # the loss options of the local objective are ported (test_torch_stopping_loss.py)
     for cfg in (SolverConfig(objective="local"), SolverConfig(objective="local",
                                                               z_match_weight=1.0),

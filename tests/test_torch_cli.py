@@ -3,8 +3,8 @@ actions (dest, default, choices, nargs), ``make_problem`` for all 13
 problems, ``oracle_y0`` (the deterministic oracles within 1e-6 relative,
 the Monte-Carlo ones within 4 combined SE), the end-to-end cases of
 ``tests/test_cli.py`` through ``main(..., device="cpu")`` (JAX's ``slow``
-marks kept), the summary's key set, the options not ported yet, and the
-``.npz`` plots written without matplotlib."""
+marks kept), ``--mode SDEnet`` and ``--surface``, the summary's key set, the option not
+ported yet (``--dp``), and the ``.npz`` plots written without matplotlib."""
 
 from __future__ import annotations
 
@@ -304,8 +304,54 @@ def test_cli_polish(tmp_path, capsys):
     assert np.isfinite(summary["learned_y0"])
 
 
-@pytest.mark.parametrize("flag,item", [(["--surface", "--problem", "heston"], "executors"),
-                                       (["--dp", "2"], "parallel")])
+def test_cli_sdenet_mode(tmp_path):
+    """``--mode SDEnet`` trains a stochastic net (the noise from the
+    trainer's generator), with EMA and an export that serves the fixed
+    evaluation noise; the --surface runs are in test_torch_surface_executor.py."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.serve import load_solution
+
+    summary = _run(tmp_path, ["--problem", "bsb", "--D", "3", "--mode", "SDEnet", *TINY,
+                              "--ema-decay", "0.9", "--export", str(tmp_path / "a.pt")])
+    assert summary["mode"] == "SDEnet" and np.isfinite(summary["learned_y0"])
+    sol = load_solution(str(tmp_path / "a.pt"), device="cpu")
+    u, _ = sol.u_and_grad(np.zeros((1, 1)), BlackScholesBarenblatt(D=3).x0.numpy()[None])
+    assert u[0, 0] == pytest.approx(summary["ema_y0"], rel=1e-6)
+
+
+@pytest.mark.parametrize("budget", [[6, 2], [3, 1]])
+def test_cli_surface(tmp_path, budget, monkeypatch, capsys):
+    """``--problem heston --surface`` runs the executor with the flags
+    mapped onto SurfaceConfig (the budget is --iters' sum) and returns 0
+    exactly when the smile's ok holds (the executor itself:
+    test_torch_surface_executor.py)."""
+    import pandas as pd
+
+    from dnnpde_tpu_torch.experiments import executors as surface
+
+    seen = {}
+    run = surface.HestonSurfaceExecutor.execute
+
+    def spy(self):
+        seen["cfg"] = self.cfg
+        return run(self)
+
+    monkeypatch.setattr(surface.HestonSurfaceExecutor, "execute", spy)
+    argv = ["--problem", "heston", "--surface", "--M", "8", "--N", "4", "--width", "16",
+            "--depth", "2", "--iters", *map(str, budget), "--out", str(tmp_path)]
+    rc = main(argv, device="cpu")
+    cfg = seen["cfg"]
+    assert (cfg.M, cfg.N, cfg.width, cfg.depth, cfg.budget) == (8, 4, 16, 2, sum(budget))
+    assert (cfg.objective, cfg.output_mode, cfg.x0_scale, cfg.seed) == ("local", "bs", 0.3, 0)
+    df = pd.read_csv(tmp_path / "results_heston_surface.csv")
+    smile_ok = bool(df.loc[df["kind"] == "iv_smile", "ok"].iloc[0])
+    assert rc == (0 if smile_ok else 1)
+    assert '"mean_abs_iv_err_volpts"' in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="requires --problem heston"):
+        main(["--problem", "bsb", "--surface", "--out", str(tmp_path)], device="cpu")
+
+
+@pytest.mark.parametrize("flag,item", [(["--dp", "2"], "parallel")])
 def test_options_not_ported_yet_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main(flag + ["--out", str(tmp_path)], device="cpu")

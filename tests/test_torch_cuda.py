@@ -728,3 +728,77 @@ def test_cli_runs_on_the_card_through_its_entry_point(cuda_device, tmp_path):
     assert 0.0 < summary["oracle_y0"] < 0.1
     assert summary["cv_price"]["n_paths"] == 16384
     assert (tmp_path / "sol.pt").exists()
+
+
+@pytest.mark.parametrize("objective", ["global", "local_ema"])
+def test_sdenet_captured_chunk_equals_eager_steps(cuda_device, objective):
+    """An SDENet trainer draws its noise inside the captured iteration from
+    its registered generator: 12 replayed iterations equal 12 eager steps bit
+    for bit (losses, Y0s, parameters, generator state), and the evaluation
+    paths leave the generator alone."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import Trainer
+
+    kw = dict(M=32, N=8, layers=[11, 32, 32, 32, 1], mode="SDEnet", seed=4, ema_decay=0.9,
+              objective=objective, device=cuda_device)
+    captured, eager = (Trainer(BlackScholesBarenblatt(D=10), **kw) for _ in range(2))
+    captured.train(12, 1e-3, log_every=12, verbose=False)
+    chunk = next(iter(captured._chunk_cache.values()))
+    assert chunk.graph is not None
+    steps = [eager.step(*eager._batch(), "Adam", 1e-3) for _ in range(12)]
+    assert torch.equal(chunk.losses[:12], torch.stack([s[0] for s in steps]))
+    assert torch.equal(chunk.y0s[:12], torch.stack([s[1] for s in steps]))
+    assert all(torch.equal(a, b) for a, b in zip(captured._params, eager._params))
+    state = captured.generator.get_state()
+    assert torch.equal(state, eager.generator.get_state())
+    X = np.ones((4, 10), np.float32)
+    u1, _ = captured.evaluate_u(np.zeros((4, 1)), X)
+    u2, _ = captured.evaluate_u(np.zeros((4, 1)), X)
+    np.testing.assert_array_equal(u1, u2)
+    assert torch.equal(state, captured.generator.get_state())
+
+
+def test_implied_vol_on_the_card_equals_the_cpu(cuda_device):
+    """The safeguarded Newton solve and its implicit-function gradient on
+    the card and on the CPU, within 1e-5 (σ) and 1e-4 relative (gradient)."""
+    from dnnpde_tpu_torch.numerics import implied_vol
+
+    rng = np.random.default_rng(0)
+    K = rng.uniform(0.75, 1.3, 64).astype(np.float32)
+    price = np.maximum(1.0 - K, 0.0) + rng.uniform(0.01, 0.1, 64).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = torch.tensor(price, device=dev, requires_grad=True)
+        iv = implied_vol(p, 1.0, torch.tensor(K, device=dev), 1.0, 0.02)
+        iv.sum().backward()
+        out[dev.type] = (iv.detach().cpu().numpy(), p.grad.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["hjb", "heston", "surface"])
+def test_executors_run_on_the_card(cuda_device, tmp_path, name):
+    """The executors at tests/test_executors.py's tiny sizes on the card:
+    each CSV complete, its graded numbers finite, its rows flagged."""
+    import pandas as pd
+
+    from dnnpde_tpu_torch import experiments as ex
+
+    tiny = dict(Ms=(8,), Ds=(5,), N=4, lr_pairs=((1e-3, 1e-4),), iter_pairs=((6, 2),),
+                optimizers=("Adam",), modes=("FC",), activations=("Sine",),
+                hidden=(16, 16, 16, 16))
+    if name == "hjb":
+        ex.HJBExecutor(ex.SweepConfig(**tiny), str(tmp_path), device=cuda_device).execute()
+        df, col = pd.read_csv(tmp_path / "results_hjb.csv"), "Quality Flag"
+    elif name == "heston":
+        ex.HestonExecutor(Ms=(4,), N=4, n_iter=(6, 2), save_path=str(tmp_path),
+                          device=cuda_device).execute()
+        df, col = pd.read_csv(tmp_path / "results_heston.csv"), "Quality Flag"
+    else:
+        cfg = ex.SurfaceConfig(M=16, N=4, width=16, depth=2, budget=8, s_grid=(0.7, 1.4, 15),
+                               discrete_oracle_paths=4096)
+        ex.HestonSurfaceExecutor(cfg, str(tmp_path), device=cuda_device).execute()
+        df, col = pd.read_csv(tmp_path / "results_heston_surface.csv"), "ok"
+    assert len(df) >= 1 and df[col].notna().all()
+    numeric = df.select_dtypes("number")
+    assert np.isfinite(numeric.fillna(0.0).to_numpy()).all()

@@ -11,7 +11,14 @@ import torch
 
 from dnnpde_tpu.nets import build_network as jax_build_network
 from dnnpde_tpu.nets.networks import MLP as JaxMLP
-from dnnpde_tpu_torch.nets import MLP, Dense, build_network, get_activation, xavier_uniform
+from dnnpde_tpu_torch.nets import (
+    MLP,
+    Dense,
+    SDENet,
+    build_network,
+    get_activation,
+    xavier_uniform,
+)
 from dnnpde_tpu_torch.params import extract_mlp_params, from_flax_params
 
 LAYERS = [5, 32, 32, 1]
@@ -105,7 +112,7 @@ def test_build_network_modes():
     net = build_network("FC", LAYERS, "Sine", device="cpu")
     assert isinstance(net, MLP)
     assert isinstance(build_network("mlp", LAYERS, device="cpu"), MLP)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_network("SDEnet", LAYERS, device="cpu")
+    sde = build_network("SDEnet", LAYERS, device="cpu", h=0.2)
+    assert isinstance(sde, SDENet) and sde.h == 0.2 and not sde.deterministic
     with pytest.raises(ValueError, match="Unknown network mode"):
         build_network("transformer", LAYERS, device="cpu")

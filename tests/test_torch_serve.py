@@ -125,8 +125,9 @@ def test_what_is_not_ported_raises(tmp_path):
     from dnnpde_tpu_torch.nets import MLP
 
     net = MLP(LAYERS, "sine", device="cpu")
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        save_solution(str(tmp_path / "a.pt"), net, D, stochastic=True)
+    # every net of the zoo is served (SDENet: test_torch_sdenet.py); another module is not
+    with pytest.raises(NotImplementedError, match="cannot serve a Linear"):
+        save_solution(str(tmp_path / "a.pt"), torch.nn.Linear(D + 1, 1), D)
     with pytest.raises(ValueError, match="do not map"):
         save_solution(str(tmp_path / "a.pt"), net, D + 1)
 
