@@ -14,8 +14,8 @@ counterpart of ``dnnpde_tpu/experiments/executors.py``.
 - :class:`HestonSurfaceExecutor` (:class:`SurfaceConfig`): the surface
   recipe (local objective, BS head, lognormal X0, EMA read), graded as an
   IV smile, price/Δ/Γ surfaces and a 2-D (S, v) surface with vega.
-- :class:`SensitivityExecutor` is not ported yet (ROADMAP.md Queue 1,
-  item 3: it trains a vmapped ensemble) and raises NotImplementedError.
+- :class:`SensitivityExecutor`: real samples trained as one two-phase
+  ensemble program plus synthetic ones, scored by HSIC.
 
 Every executor takes its config, an output directory and ``device`` (None:
 the first CUDA card, raising without one; "cpu" runs on the CPU). Its
@@ -39,12 +39,15 @@ from dnnpde_tpu_torch.evals import (
     RESULT_COLUMNS,
     PredictionGenerator,
     ResultsReport,
+    SensitivityAnalyzer,
     StabilityCheck,
     TrainingPlot,
     compute_greeks,
     error_stats,
     heston_greeks,
     quality_row,
+    sample_hyperparameters,
+    simulate_performance,
 )
 from dnnpde_tpu_torch.numerics import (
     HestonParams,
@@ -675,12 +678,75 @@ class HestonSurfaceExecutor:
 
 
 class SensitivityExecutor:
-    """Real training samples + synthetic augmentation → HSIC analysis. Not
-    ported yet: it trains its real samples as one vmapped ensemble
-    (``train/ensemble.py::train_sensitivity_ensemble``) and needs
-    ``evals/sensitivity.py``; both wait for ROADMAP.md Queue 1, item 3."""
+    """Real training samples plus synthetic augmentation → HSIC scores. All
+    real samples train as one two-phase ensemble program
+    (``train.ensemble.train_sensitivity_ensemble``: per-member rates and
+    phase lengths, one captured iteration on a card). ``evaluate_model`` is
+    the sequential run of one sample, used for optimizers outside the
+    ensemble's preconditioner set (LBFGS etc.)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SensitivityExecutor is not ported yet (ROADMAP.md Queue 1, item 3: replicas, "
-            "ensembles and evals/sensitivity.py)")
+    def __init__(
+        self,
+        problem,
+        M: int = 32,
+        N: int = 16,
+        mode: str = "FC",
+        activation: str = "Sine",
+        optimizer: str = "Adam",
+        save_path: str = ".",
+        seed: int = 0,
+        iter_scale: float = 1.0,
+        device=None,
+    ):
+        self.problem = problem
+        self.M = M
+        self.N = N
+        self.mode = mode
+        self.activation = activation
+        self.optimizer = optimizer
+        self.save_path = save_path
+        self.seed = seed
+        self.iter_scale = iter_scale
+        self.device = default_device(device)
+        self.analyzer = SensitivityAnalyzer(device=self.device)
+
+    def evaluate_model(self, hp: dict) -> float:
+        """One real sample: two-phase training; returns the min loss."""
+        trainer = Trainer(
+            self.problem, M=self.M, N=self.N,
+            layers=default_layers(self.problem.dim, width=64),
+            mode=self.mode, activation=self.activation, seed=self.seed, device=self.device,
+        )
+        n1 = max(1, int(hp["initial_n_iter"] * self.iter_scale))
+        n2 = max(1, int(hp["fine_tuning_n_iter"] * self.iter_scale))
+        r1 = trainer.train(n1, hp["initial_lr"], self.optimizer, verbose=False)
+        r2 = trainer.train(n2, hp["fine_tuning_lr"], self.optimizer, verbose=False)
+        return min(r1.min_loss, r2.min_loss)
+
+    def execute(self, num_real_samples: int = 32,
+                num_simulated_samples: int = 968) -> dict[str, float]:
+        rng = np.random.default_rng(self.seed)
+        results = []
+        real_hps = [sample_hyperparameters(rng) for _ in range(num_real_samples)]
+        if real_hps:
+            from dnnpde_tpu_torch.train import ensemble
+
+            if self.optimizer.lower() in ensemble.PRECONDITIONERS:
+                perfs = ensemble.train_sensitivity_ensemble(
+                    self.problem, real_hps, M=self.M, N=self.N,
+                    layers=default_layers(self.problem.dim, width=64),
+                    mode=self.mode, activation=self.activation,
+                    optimizer_type=self.optimizer, seed=self.seed,
+                    iter_scale=self.iter_scale, device=self.device,
+                )
+                results += [{"hyperparams": hp, "performance": float(p)}
+                            for hp, p in zip(real_hps, perfs)]
+            else:  # sequential fallback (e.g. LBFGS)
+                results += [{"hyperparams": hp, "performance": self.evaluate_model(hp)}
+                            for hp in real_hps]
+        for _ in range(num_simulated_samples):
+            hp = sample_hyperparameters(rng)
+            perf = float(simulate_performance({k: np.asarray(v) for k, v in hp.items()}, rng))
+            results.append({"hyperparams": hp, "performance": perf})
+        scores, _, _ = self.analyzer.analyze(results)
+        return scores

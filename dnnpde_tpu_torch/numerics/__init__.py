@@ -2,9 +2,9 @@
 closed forms and vega, the Monte-Carlo pricers, the Heston closed form, its
 Milstein pricers and Crank–Nicolson solver, Gauss–Legendre quadrature,
 the optimal-stopping oracles: the CRR tree and Longstaff–Schwartz with the
-linear-driver probe, and the discrete-N BSDE oracles, pseudo-random and
-randomized QMC). The rest of the JAX package's ``numerics`` is listed
-in ROADMAP.md, Queue 1."""
+linear-driver probe, the discrete-N BSDE oracles, pseudo-random and
+randomized QMC, the moment-matched, Carr–Madan FFT and Variance-Gamma basket
+pricers, and the differentiable Heston calibration)."""
 
 from dnnpde_tpu_torch.numerics.black_scholes import (
     basket_analytical_approx,
@@ -16,6 +16,7 @@ from dnnpde_tpu_torch.numerics.black_scholes import (
     lookback_call_floating,
 )
 from dnnpde_tpu_torch.numerics.binomial import crr_binomial
+from dnnpde_tpu_torch.numerics.calibration import CalibrationResult, calibrate_heston
 from dnnpde_tpu_torch.numerics.crank_nicolson import (
     CNGrid,
     bilinear_interpolate,
@@ -28,6 +29,11 @@ from dnnpde_tpu_torch.numerics.discrete_bsde import (
     discrete_bsde_value,
     probe_linear_driver,
 )
+from dnnpde_tpu_torch.numerics.fft_pricer import (
+    basket_lognormal_cf_params,
+    carr_madan_call,
+    fft_basket_call,
+)
 from dnnpde_tpu_torch.numerics.heston import (
     HestonParams,
     heston_call_price,
@@ -39,6 +45,11 @@ from dnnpde_tpu_torch.numerics.heston import (
 )
 from dnnpde_tpu_torch.numerics.implied_vol import bs_vega, implied_vol
 from dnnpde_tpu_torch.numerics.longstaff_schwartz import LSMCValue, basis_size, lsmc_value
+from dnnpde_tpu_torch.numerics.moments import (
+    basket_moments,
+    match_lognormal,
+    moment_matched_basket_call,
+)
 from dnnpde_tpu_torch.numerics.monte_carlo import (
     basket_call_mc,
     basket_delta_mc,
@@ -52,6 +63,12 @@ from dnnpde_tpu_torch.numerics.qmc import (
     sobol_brownian_increments,
 )
 from dnnpde_tpu_torch.numerics.quadrature import gauss_legendre
+from dnnpde_tpu_torch.numerics.variance_gamma import (
+    VGParams,
+    vg_basket_call,
+    vg_table_2,
+    vg_table_3,
+)
 
 __all__ = [
     "black_scholes_call",
@@ -91,4 +108,16 @@ __all__ = [
     "LSMCValue",
     "basis_size",
     "lsmc_value",
+    "CalibrationResult",
+    "calibrate_heston",
+    "basket_lognormal_cf_params",
+    "carr_madan_call",
+    "fft_basket_call",
+    "basket_moments",
+    "match_lognormal",
+    "moment_matched_basket_call",
+    "VGParams",
+    "vg_basket_call",
+    "vg_table_2",
+    "vg_table_3",
 ]

@@ -70,9 +70,11 @@ def _char_func(p: HestonParams, phi: Tensor, S: Tensor, V: Tensor, which: int) -
 
 def _prob(p: HestonParams, S: Tensor, V: Tensor, which: int, order: int) -> Tensor:
     """P_j = 1/2 + (1/π)∫₀^∞ Re[e^{−iφ ln K} f_j(φ)/(iφ)] dφ, truncated at 100,
-    broadcast over S and V (the nodes ride a new last axis)."""
+    broadcast over S and V (the nodes ride a new last axis). The model
+    parameters may be tensors that carry a graph, and K and T tensors that
+    broadcast against S[..., None] (one strike and maturity per quote)."""
     S_, V_ = S[..., None], V[..., None]
-    log_k = torch.log(torch.tensor(p.K, dtype=S.dtype, device=S.device))
+    log_k = torch.log(torch.as_tensor(p.K, dtype=S.dtype, device=S.device))
 
     def integrand(phi):
         f = _char_func(p, phi, S_, V_, which)

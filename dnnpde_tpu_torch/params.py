@@ -112,6 +112,29 @@ def from_flax_params(
     return net
 
 
+def _replica_slice(tree, k: int):
+    if isinstance(tree, dict):
+        return {n: _replica_slice(v, k) for n, v in tree.items()}
+    return np.asarray(tree)[k]
+
+
+def from_flax_replicas(tree, activation="sine", *, mode: str = "FC", compute_dtype=None,
+                       device=None, **net_kwargs) -> dict:
+    """A replica-stacked JAX parameter tree (``{"params": {...}}`` with
+    leaves (K, …), as ``jax.vmap`` of ``net.init`` makes it) as the port's
+    stacked state: parameter name → (K, …) tensor, the layout of
+    ``torch.func.stack_module_state`` that ``train/replicas.py`` trains.
+    Replica k is ``from_flax_params`` of the tree's k-th slice."""
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    nets = [from_flax_params(_replica_slice(tree, k), activation, mode=mode,
+                             compute_dtype=compute_dtype, device=device, **net_kwargs)
+            for k in range(np.shape(first)[0])]
+    stacked, _ = torch.func.stack_module_state(nets)
+    return {n: p.detach() for n, p in stacked.items()}
+
+
 def extract_mlp_params(module: MLP) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
     """(Ws, bs) in layer order, JAX layout: ``Ws[k]`` (in, out) contiguous,
     ``bs[k]`` (out,). The tensors stay on the module's device and in its

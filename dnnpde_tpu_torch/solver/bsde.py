@@ -128,13 +128,47 @@ def make_net_u(net: torch.nn.Module, transform: Optional[Callable] = None) -> Ca
     return net_u
 
 
+def make_functional_net_u(module, transform: Optional[Callable] = None) -> Callable:
+    """:func:`make_net_u` for a loss evaluated under ``torch.func``
+    transforms (``vmap`` over replicas of ``grad``): Z = ∇ₓΣu by
+    ``torch.func.vjp``, which composes with the enclosing transforms, where
+    ``torch.autograd.grad`` on an input marked ``requires_grad_`` is not
+    allowed. Z keeps its dependence on the parameters for the outer
+    ``grad``."""
+
+    def net_u(t: Tensor, X: Tensor, noise=None):
+        def u_of(x):
+            inp = torch.cat([t, x], dim=-1)
+            u = module(inp) if noise is None else module(inp, noise)
+            return u if transform is None else transform(t, x, u)
+
+        u, vjp = torch.func.vjp(u_of, X)
+        (Z,) = vjp(torch.ones_like(u))
+        return u, Z
+
+    return net_u
+
+
+def _functional_dg(problem: PDEProblem) -> Callable:
+    """X → ∇ₓΣg by ``torch.func.vjp``: ``problem.Dg`` for a loss under
+    ``torch.func`` transforms."""
+
+    def dg(X: Tensor) -> Tensor:
+        g, vjp = torch.func.vjp(problem.g, X)
+        (grad,) = vjp(torch.ones_like(g))
+        return grad
+
+    return dg
+
+
 def _terminal_penalty(problem: PDEProblem, X_N: Tensor, Y_N: Tensor, Z_N: Tensor,
-                      mask: Optional[Tensor] = None, w: Optional[Tensor] = None) -> Tensor:
+                      mask: Optional[Tensor] = None, w: Optional[Tensor] = None,
+                      dg: Optional[Callable] = None) -> Tensor:
     """(Y_N − g)² + ‖(Z_N − Dg)·mask‖² summed over the batch; ``mask`` is
     ``problem.z_penalty_mask`` on X_N's device, ``w`` optional (M, 1) path
-    weights."""
+    weights, ``dg`` the gradient of g (default ``problem.Dg``)."""
     dy2 = (Y_N - problem.g(X_N)) ** 2
-    dz = Z_N - problem.Dg(X_N)
+    dz = Z_N - (problem.Dg if dg is None else dg)(X_N)
     if mask is not None:
         dz = dz * mask
     dz2 = torch.sum(dz**2, dim=-1, keepdim=True)
@@ -170,9 +204,16 @@ def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
             raise NotImplementedError(f"{name} {_LATER}")
 
 
-def _bind_net_u(problem: PDEProblem, net, config: SolverConfig) -> Callable:
+def _bind_net_u(problem: PDEProblem, net, config: SolverConfig,
+                functional: bool = False) -> Callable:
     """module → net_u(t, X, noise=None) for one loss evaluation. The fused path extracts
     the weights once here, not at each of the N+1 evaluations."""
+    if functional:
+        if config.fused_net_u or config.remat:
+            raise ValueError(
+                "a loss under torch.func transforms takes (u, Z) by autograd of the net "
+                "(fused_net_u=False) without remat")
+        return lambda module: make_functional_net_u(module, transform=problem.transform_u)
     if not config.fused_net_u:
         return lambda module: make_net_u(module, transform=problem.transform_u)
     from dnnpde_tpu_torch.nets.networks import MLP
@@ -199,9 +240,16 @@ def make_loss_fn(
     problem: PDEProblem,
     net: torch.nn.Module,
     config: SolverConfig = SolverConfig(),
+    functional: bool = False,
 ) -> Callable:
     """Build loss(net, ts, dWs, X0, paths=True, target_params=None,
     noise=None) → RolloutResult.
+
+    ``functional=True`` builds the loss for evaluation under ``torch.func``
+    transforms (the replica programs of ``train/replicas.py`` vmap its
+    ``grad`` over stacked weights): Z comes from
+    :func:`make_functional_net_u`, and the config must use neither the fused
+    net_u nor remat.
 
     ``net`` here gives the structure (``layers``, ``activation``); the
     returned function evaluates the module it is given (the JAX loss takes
@@ -223,7 +271,8 @@ def make_loss_fn(
         default ``PRNGKey(0)``). Ignored otherwise.
     """
     _check_config(problem, config)
-    bind = _bind_net_u(problem, net, config)
+    bind = _bind_net_u(problem, net, config, functional)
+    dg = _functional_dg(problem) if functional else None
     local = config.objective == "local"
     early = problem.early_exercise
     zmatch = float(config.z_match_weight or 0.0)
@@ -372,7 +421,7 @@ def make_loss_fn(
         loss = weighted_sum(final_resid, w)
         if residuals:
             loss = torch.stack(residuals).sum() + loss
-        loss = loss + _terminal_penalty(problem, X, YN, ZN, z_penalty_mask.on(X.device), w)
+        loss = loss + _terminal_penalty(problem, X, YN, ZN, z_penalty_mask.on(X.device), w, dg)
         if zmatch:
             loss = loss + z_match_resid(zstate, problem.g(X), w)
         if not paths:

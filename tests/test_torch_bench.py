@@ -9,8 +9,21 @@ import json
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 from dnnpde_tpu_torch import bench
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: with several test workers on one host, PyTorch's
+    default of one thread per core makes these small CPU ops many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_bench_prints_bench_py_line_at_a_tiny_size():

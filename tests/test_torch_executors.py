@@ -6,7 +6,8 @@ artifacts, every numeric field finite where JAX's is. The Heston executor's
 oracle cross-check (at 8192 Monte-Carlo paths of 50 steps, to keep the file
 short) agrees with JAX's (the closed form within 1e-5 relative, each
 Monte-Carlo price within 4 combined SE), and a clamp-pinned run is
-flagged degenerate. ``SensitivityExecutor`` raises, naming ROADMAP."""
+flagged degenerate. ``SensitivityExecutor`` is held in
+``tests/test_torch_sensitivity.py`` and ``tests/test_torch_ensemble.py``."""
 
 from __future__ import annotations
 
@@ -15,10 +16,23 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 import dnnpde_tpu.experiments as jax_ex
 import dnnpde_tpu_torch.experiments as ex
 from dnnpde_tpu_torch.experiments import executors as ex_module
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: with several test workers on one host, PyTorch's
+    default of one thread per core makes these small CPU ops many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TINY = dict(
     Ms=(8,), Ds=(3,), N=4,
@@ -115,8 +129,3 @@ def test_sweep_phases_fold_min_loss(tmp_path):
     rep = ex.HJBExecutor(cfg, str(tmp_path), device="cpu").execute()
     row = rep.rows[0]
     assert np.isfinite(row["min_loss"]) and row["Quality Flag"] in ("ok", "off_oracle")
-
-
-def test_sensitivity_executor_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 3"):
-        ex.SensitivityExecutor(None)

@@ -44,6 +44,18 @@ from dnnpde_tpu_torch.numerics import (
 )
 from test_numerics import _scipy_heston_price
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: with several test workers on one host, PyTorch's
+    default of one thread per core makes these small CPU ops many times
+    slower (this file: ~20 s alone, up to ~13 min beside five workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REF = HestonParams()
 OFF = dict(K=1.1, r=0.03, T=2.0, kappa=1.5, theta=0.1, sigma=0.6, rho=-0.5, v0=0.15)
 POINTS = [(1.0, 0.2), (0.8, 0.2), (1.2, 0.1), (1.0, 0.04)]

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` and not the port's scripts ``scripts/time_tree.py``,
 ``scripts/k4_anatomy.py``, ``scripts/anneal_20k.py``,
 ``scripts/stopping_rows.py``, ``scripts/path_rows.py``,
-``scripts/cli_seeds.py`` and ``scripts/surface_rows.py`` imports JAX, Flax,
+``scripts/cli_seeds.py``, ``scripts/surface_rows.py`` and
+``scripts/replica_rows.py`` imports JAX, Flax,
 Optax or the JAX package, no module of the port imports matplotlib (nor,
 the experiments and reports, pandas) at import time; and its entry points
 never fall back to the CPU on their own.
@@ -28,7 +29,7 @@ def _port_sources() -> list[Path]:
     return files + [ROOT / "chip_smoke.py"] + [
         ROOT / "scripts" / f"{s}.py"
         for s in ("time_tree", "k4_anatomy", "anneal_20k", "stopping_rows", "path_rows",
-                  "cli_seeds", "surface_rows")]
+                  "cli_seeds", "surface_rows", "replica_rows")]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -61,9 +62,12 @@ def test_port_sources_found():
         "numerics/implied_vol", "evals/policy_value", "solver/weights", "sim/x0_samplers",
         "numerics/qmc", "evals/control_variate", "evals/plots", "cli", "__main__",
         "evals/reports", "evals/stability", "experiments/__init__",
-        "experiments/executors")} <= names
+        "experiments/executors", "train/replicas", "train/ensemble", "train/extrapolation",
+        "evals/sensitivity", "evals/correlation_analysis", "numerics/moments",
+        "numerics/fft_pricer", "numerics/variance_gamma", "numerics/calibration",
+        "sim/mlmc")} <= names
     assert {"scripts/stopping_rows.py", "scripts/path_rows.py",
-            "scripts/surface_rows.py"} <= names
+            "scripts/surface_rows.py", "scripts/replica_rows.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -335,3 +339,70 @@ def test_surface_slice_entry_points_without_cuda_raise(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert float(implied_vol(0.1, 1.0, 1.0, 1.0, 0.0, device="cpu")) > 0
+
+
+def test_replica_slice_entry_points_without_cuda_raise(no_cuda):
+    """The replica and ensemble programs, extrapolation, the sensitivity
+    analysis and executor, and the last oracles resolve ``device=None`` to
+    the card and raise without one; the Monte-Carlo ones run on their
+    generator's device, and the moment matching is host-side NumPy."""
+    import numpy as np
+
+    from dnnpde_tpu_torch import experiments
+    from dnnpde_tpu_torch.evals import (
+        FastSensitivityAnalysis,
+        RandomCorrelationSensitivityAnalysis,
+        SensitivityAnalyzer,
+        equicorrelation_sensitivity,
+        hsic_rbf,
+    )
+    from dnnpde_tpu_torch.numerics import (
+        calibrate_heston,
+        carr_madan_call,
+        fft_basket_call,
+        moment_matched_basket_call,
+        vg_basket_call,
+        vg_table_2,
+        vg_table_3,
+    )
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, CallOption1D
+    from dnnpde_tpu_torch.sim import mlmc_gbm_price, mlmc_minibatch
+    from dnnpde_tpu_torch.train import (
+        ReplicaProgram,
+        richardson_y0,
+        train_ensemble,
+        train_replicas,
+        train_sensitivity_ensemble,
+        train_y0,
+    )
+
+    prob = BlackScholesBarenblatt(D=2)
+    hp = [{"initial_lr": 1e-3, "fine_tuning_lr": 1e-4, "initial_n_iter": 2,
+           "fine_tuning_n_iter": 1}]
+    calls = [
+        lambda: train_replicas(prob, (0,), [(2, 1e-3)], M=4, N=2, layers=[3, 8, 1]),
+        lambda: ReplicaProgram(prob, (0,), M=4, N=2, layers=[3, 8, 1]),
+        lambda: train_ensemble(prob, 2, 2, M=4, N=2, layers=[3, 8, 1]),
+        lambda: train_sensitivity_ensemble(prob, hp, M=4, N=2, layers=[3, 8, 1]),
+        lambda: train_y0(prob, 4, 2, [(2, 1e-3)], layers=[3, 8, 1]),
+        lambda: richardson_y0(prob, M=4, N=2, phases=[(2, 1e-3)], layers=[3, 8, 1]),
+        lambda: experiments.SensitivityExecutor(CallOption1D(D=1)),
+        lambda: hsic_rbf(np.arange(4.0), np.arange(4.0)),
+        lambda: SensitivityAnalyzer().calculate_hsic({"a": np.arange(4.0)}, np.arange(4.0)),
+        lambda: FastSensitivityAnalysis(num_samples=8).run(),
+        lambda: carr_madan_call(1.0, 1.0, 1.0, 0.05, 0.2),
+        lambda: fft_basket_call(np.ones(2), 1.0, 1.0, 0.05, 0.2),
+        lambda: vg_basket_call([(1.0, 1.0)], 1.0, 1.0, 0.05),
+        lambda: vg_table_2(),
+        lambda: vg_table_3(),
+        lambda: calibrate_heston(1.0, [1.0], [1.0], [0.1], r=0.05, n_iter=1),
+        lambda: RandomCorrelationSensitivityAnalysis(n=2).run_analysis(num_samples=1),
+        lambda: equicorrelation_sensitivity(np.ones(2), 1.0, 1.0, 0.05, 0.2, [0.5]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    gen = torch.Generator().manual_seed(0)
+    assert mlmc_gbm_price(gen, [1.0], 1.0, 1.0, 0.05, 0.2)[0].device.type == "cpu"
+    assert mlmc_minibatch(gen, 2, 4, 1, 1.0)[0][1].device.type == "cpu"
+    assert moment_matched_basket_call(np.ones(2), 1.0, 1.0, 0.05, 0.2) > 0

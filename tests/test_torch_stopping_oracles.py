@@ -38,6 +38,18 @@ from dnnpde_tpu_torch.pde import (
 )
 from dnnpde_tpu_torch.train import Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: with several test workers on one host, PyTorch's
+    default of one thread per core makes these small CPU ops many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 10
 SMALL = dict(n_regression=32_768, n_pricing=65_536)
 

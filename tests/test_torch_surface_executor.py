@@ -23,6 +23,18 @@ import dnnpde_tpu_torch.experiments.executors as ex
 from dnnpde_tpu.sim import lognormal_x0 as jax_lognormal_x0
 from dnnpde_tpu_torch.params import from_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: with several test workers on one host, PyTorch's
+    default of one thread per core makes these small CPU ops many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(M=64, N=10, width=32, depth=2, budget=40, smile_t_evals=(0.0, 0.5),
            t_evals=(0.5,), s_grid=(0.6, 1.5, 15), v_grid=(0.6, 1.8, 3), seed=0)
 
