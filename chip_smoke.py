@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's training, serving, basket, harness, stopping,
-CLI, SDENet, surface, executor, replica, ensemble and oracle paths on one
-NVIDIA GPU and check its kernels.
+CLI, SDENet, surface, executor, replica, ensemble, oracle and parallel paths
+on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --parallel-rank DIR`` is one rank of the parallel
+path's two-rank launch, started by the script itself.)
 
 Run from the repo root on a machine with a CUDA card, ``nvcc`` and PyTorch
 built for CUDA. It
@@ -97,8 +100,8 @@ built for CUDA. It
    the CLI's defaults (M = 100, N = 50, FC-Sine [101, 256 x 4, 1], 2000
    iterations at 1e-3 then 500 at 1e-5) with --checkpoint and --export
    (rel_error within 4.2 %, the export serves the checkpoint's Y0 within
-   1e-5); the barrier call at N = 10, M = 4096, 6000 iterations at 1e-3
-   then 4000 at 1e-4, with --cv-price 262144 (objective resolved to local,
+   1e-5); the barrier call at N = 10, M = 4096, 2000 iterations at 1e-3
+   then 1000 at 1e-4, with --cv-price 262144 (objective resolved to local,
    rel_error within 7.5 % of the discrete oracle, where seeds agree to a
    few percent; at the CLI's defaults even the JAX CLI misses by 13-21 %;
    the CV value within 4 combined SE of the oracle with a variance
@@ -150,14 +153,30 @@ built for CUDA. It
    4 SE of 400k-path Monte Carlo, the VG tables within 1e-5 of the JAX
    package's, MLMC within 4 SE + 0.004 of Black-Scholes, the equicorrelation
    sweep rising, and the Heston calibration's synthetic recovery (timed);
+17. drives the parallel path (``parallel/`` over ``torch.distributed``): P1,
+   one NCCL rank in this process, ``Trainer(mesh=make_mesh(1))`` on the
+   flagship, a 20-iteration captured chunk (its all-reduce inside the
+   graph) bit for bit against 20 eager steps and those against the
+   unsharded ``Trainer(seed=1)``, with the collective counter at 2 and 20;
+   P2, two gloo ranks sharing the card (one launch through the port's
+   launcher): the flagship sharded over "dp" = 2, its first gradient,
+   losses and Y0s over 20 iterations within 1e-5 of the unsharded
+   trainer's and both ranks' state bitwise equal, ``_dryrun_body``'s
+   configs at its sizes (the 2-D one as dp x tp = 1 x 2) each within 5e-5,
+   tensor parallelism at [3, 512 x 4, 1], M = 1024, 5 iterations within
+   rtol 1e-3 of the replicated trainer, the sharded checkpoints read back
+   bit for bit by unsharded trainers, ``train_ensemble`` over the mesh
+   within rtol 1e-4; P3, ``python3 -m dnnpde_tpu_torch --dp 2`` on BSB-100
+   at the CLI's widths for 60 iterations (rc 0, one summary with JAX's
+   keys, the logged loss falling);
 
-   on each of the twelve paths all four launch counters are set to 0 just
+   on each of the thirteen paths all four launch counters are set to 0 just
    before it runs and read just after; the kernels line reports each
    kernel's launches path by path (K1's and K2's on the training, basket
    and stopping paths from the run's trace, the others from the wrappers;
    none is on the harness, CLI, SDENet, surface, executor, replica,
-   ensemble and oracle paths) beside the wrapper calls;
-17. times the replica program's replica-iterations/s beside one solo
+   ensemble, oracle and parallel paths) beside the wrapper calls;
+18. times the replica program's replica-iterations/s beside one solo
    trainer's captured it/s on its configuration, times training
    (iterations/s at M = 100, 512, 2048 on both paths, captured chunks and
    eager ``Trainer.step`` loops, and the basket run),
@@ -168,7 +187,8 @@ built for CUDA. It
    oracles (host clock to result), then each kernel, its plain version and
    one PyTorch call that computes the same function (the library
    yardstick, which the port never calls; none computes K4's), and prints
-   the script's total seconds, one JSON line of kernels (K4's at the basket
+   one JSON line of every phase's seconds, the script's total seconds, one
+   JSON line of kernels (K4's at the basket
    path's N = 1) and, last, the device line.
 
 Any failure ends the script with a non-zero exit code and no result line.
@@ -177,7 +197,9 @@ Any failure ends the script with a non-zero exit code and no result line.
 from __future__ import annotations
 
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -197,7 +219,7 @@ TRAIN_M = 100
 TRAIN_ITERS = 400
 TRAIN_LOG_EVERY = 100
 TRAIN_RATE_MS = (100, 512, 2048)  # bench.py's rows
-RATE_ITERS = {100: 50, 512: 25, 2048: 10}  # per timed window, captured and eager
+RATE_ITERS = {100: 25, 512: 12, 2048: 5}  # per timed window, captured and eager
 CAPTURE_CHECK_ITERS = 100  # the captured chunk held bit for bit against eager steps
 PHASES = ((2000, 1e-3), (500, 1e-5))  # TrainingPhases' reference defaults
 PHASE_BASE_ITERS = 400  # |Y0 - exact| after these iterations is the mark to beat
@@ -1469,8 +1491,8 @@ STOP_M = 1024
 # The JAX studies' phases (half the budget at 1e-3, a quarter each at 1e-4
 # and 1e-5; scripts/studies_r4.py, studies_r5.py), cut from 20000 to 1500,
 # and to 5000 for the American put: its learned premium is biased high at
-# short budgets (8.3 % above the tree after 1500 iterations, 2.5 % after
-# 5000, on an H100; PERF.md §6).
+# short budgets (8.3 % above the tree after 1500 iterations, 6.3 % after
+# 3500, 2.5 % after 5000, on an H100; PERF.md §6).
 STOP_PHASES = {"american_put": ((2500, 1e-3), (1250, 1e-4), (1250, 1e-5)),
                "heston_american": ((750, 1e-3), (375, 1e-4), (375, 1e-5)),
                "max_call": ((750, 1e-3), (375, 1e-4), (375, 1e-5))}
@@ -1746,9 +1768,11 @@ CLI_CV_PATHS = 262_144
 # over seeds 0-3. At N = 10, M = 4096 and 6000 + 4000 iterations at
 # 1e-3 / 1e-4 (~100 s on an H100) seeds agree to a few percent, so the
 # learned Y0 is graded there, within 7.5 % (PERF.md §6, ROADMAP Queue 3;
-# scripts/cli_seeds.py measures the spread).
-CLI_BARRIER = ["--problem", "barrier_call", "--N", "10", "--M", "4096", "--iters", "6000",
-               "4000", "--lrs", "1e-3", "1e-4", "--ema-decay", "0.999", "--log-every", "500",
+# scripts/cli_seeds.py measures the spread); it read 0.41 % at seed 42, and
+# the run is cut to 2000 + 1000 iterations to make room for the parallel
+# path: 0.68 % there, 6.29 % at 1000 + 500 (PERF.md §6).
+CLI_BARRIER = ["--problem", "barrier_call", "--N", "10", "--M", "4096", "--iters", "2000",
+               "1000", "--lrs", "1e-3", "1e-4", "--ema-decay", "0.999", "--log-every", "500",
                "--cv-price", str(CLI_CV_PATHS), "--quiet"]
 CLI_BARRIER_REL_TOL = 0.075
 CLI_SHORT_ITERS = ("200", "50")  # the Asian and lookback runs
@@ -2040,7 +2064,7 @@ def check_cli(run) -> None:
 SDE_ITERS = 200  # its mean logged loss falls 15x by then (PERF.md §4)
 SDE_LOG_EVERY = 100
 SDE_CAPTURE_ITERS = 20
-SDE_RATE_ITERS = 20
+SDE_RATE_ITERS = 10
 SDE_SERVE_B = 4096
 
 
@@ -2678,8 +2702,9 @@ def drive_ensembles(device) -> dict:
     program, sensitivity = ensemble._program, ensemble.train_sensitivity_ensemble
 
     def keep_program(*args, **kwargs):
-        seen["program"] = program(*args, **kwargs)
-        return seen["program"]
+        made = program(*args, **kwargs)
+        seen["program"] = made[0]
+        return made
 
     def keep_minima(problem, hyperparams, **kwargs):
         seen.update(hyperparams=list(hyperparams), iter_scale=kwargs["iter_scale"])
@@ -2851,7 +2876,374 @@ def check_oracles_rest(run) -> None:
     _require(not any(run["counts"].values()), f"oracles path launched kernels: {run['counts']}")
 
 
+# ---- the parallel path ------------------------------------------------------
+# parallel/ over torch.distributed on the one card: P1 is one NCCL rank in
+# this process (the trainer's captured chunk holds its all-reduce); P2 is two
+# gloo ranks sharing the card (NCCL refuses two ranks on one device; gloo's
+# CUDA all-reduce is host-driven, so those chunks run eagerly), one child
+# launch through the port's launcher, each rank running this script with
+# --parallel-rank; P3 is the CLI's --dp 2. No kernel is on this path: the
+# sharded trainers run the f32 autograd net_u, as the reference's do.
+
+PAR_ITERS = 20
+PAR_REL_TOL = 1e-5  # P2's flagship: losses and Y0 relative, the first gradient of each max
+PAR_DRYRUN_TOL = 5e-5  # __graft_entry__._dryrun_body's parity assertion
+PAR_TP_LAYERS = [3, 512, 512, 512, 512, 1]  # the surface recipe's widths
+PAR_TP_M, PAR_TP_ITERS = 1024, 5
+PAR_TP_RTOL = 1e-3  # tests/test_model_sharding.py:55-63
+PAR_ENSEMBLE = dict(n_members=8, n_iter=20, M=16, N=4, layers=[5, 16, 16, 16, 16, 1],
+                    learning_rates=1e-3, seed=2)  # tests/test_ensemble.py:92-102
+PAR_ENSEMBLE_RTOL = 1e-4
+PAR_CLI = ["--problem", "bsb", "--iters", "50", "10", "--log-every", "10"]  # at the CLI's widths
+PAR_CHILD_WALL_S = 300
+
+
+def dryrun_configs():
+    """``__graft_entry__._dryrun_body``'s configs at its sizes, from the
+    table the CPU tests run (``tests/torch_parallel_workers.py``), and its
+    2-D config: name -> (problem, layers, Trainer keywords)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_parallel_workers import DP_TP_LAYERS
+    from torch_parallel_workers import dryrun_configs as table
+
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+
+    bsb = BlackScholesBarenblatt(D=8, T=1.0)
+    return {**table(bsb), "dp_tp": (bsb, DP_TP_LAYERS, {})}  # dp_tp on the (1, 2) mesh
+
+
+def _final(tr, steps: int = 2) -> tuple[float, float]:
+    """_dryrun_body's run: ``steps`` iterations logged once; (loss, Y0)."""
+    res = tr.train(steps, 1e-3, "Adam", log_every=steps, verbose=False)
+    return float(res.graph[1][-1]), float(res.y0_history[-1])
+
+
+def _flagship_trainer(device, mesh=None):
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import Trainer
+
+    return Trainer(BlackScholesBarenblatt(D=D), M=TRAIN_M, N=N_STEPS, layers=LAYERS, seed=1,
+                   mesh=mesh, device=device)
+
+
+def _state(tr) -> dict:
+    """A trainer's parameters, Adam state and generator, on the host."""
+    return {"params": [p.detach().cpu() for p in tr._params],
+            "mu": [x.cpu() for x in tr._opt_state["mu"]],
+            "nu": [x.cpu() for x in tr._opt_state["nu"]],
+            "count": tr._opt_state["count"].cpu(), "generator": tr.generator.get_state()}
+
+
+def _same(a: dict, b: dict) -> dict:
+    """Key by key: bitwise equal?"""
+    return {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k])) if isinstance(a[k], list)
+            else torch.equal(a[k], b[k]) for k in a}
+
+
+def check_parallel_nccl(device, store: str) -> dict:
+    """P1: one NCCL rank in this process. A 20-iteration captured chunk of
+    ``Trainer(mesh=make_mesh(1))`` against 20 eager ``step`` calls of
+    another, and those against the unsharded ``Trainer(seed=1)``'s, bit for
+    bit (losses, Y0s, parameters, Adam state, generator); the collective
+    counter must show one all-reduce per eager step and one each at the
+    warm-up and the capture. Returns the unsharded run (its losses, Y0s and
+    first gradient), P2's reference. The group meets over the file
+    ``store``."""
+    import torch.distributed as dist
+
+    from dnnpde_tpu_torch import parallel
+    from dnnpde_tpu_torch.parallel.distributed import all_reduce
+
+    t0 = time.perf_counter()
+    parallel.init_distributed(f"file://{store}", 1, 0)
+    init_s = time.perf_counter() - t0
+    try:
+        _require(dist.get_backend() == "nccl", f"1-rank group backend {dist.get_backend()}")
+        mesh = parallel.make_mesh(1)
+        captured = _flagship_trainer(device, mesh)
+        calls = all_reduce.calls
+        captured.train(PAR_ITERS, 1e-3, "Adam", log_every=PAR_ITERS, verbose=False)
+        capture_calls = all_reduce.calls - calls
+        chunk = next(iter(captured._chunk_cache.values()))
+        _require(chunk.graph is not None, "the NCCL rank's training chunk was not captured")
+        eager = _flagship_trainer(device, mesh)
+        calls = all_reduce.calls
+        steps = [eager.step(*eager._batch(), "Adam", 1e-3) for _ in range(PAR_ITERS)]
+        eager_calls = all_reduce.calls - calls
+        plain = _flagship_trainer(device)
+        batches = [plain._batch() for _ in range(PAR_ITERS)]
+        _, grads = plain._loss_and_grads(*batches[0])  # P2's reference: the first gradient
+        plain_steps = [plain.step(*batch, "Adam", 1e-3) for batch in batches]
+        _sync(device)
+    finally:
+        dist.destroy_process_group()
+    logs = {name: (torch.stack([s[0] for s in st]), torch.stack([s[1] for s in st]))
+            for name, st in (("eager", steps), ("plain", plain_steps))}
+    same = {
+        "captured_vs_eager": {
+            "losses": torch.equal(chunk.losses[:PAR_ITERS], logs["eager"][0]),
+            "y0": torch.equal(chunk.y0s[:PAR_ITERS], logs["eager"][1]),
+            **_same(_state(captured), _state(eager))},
+        "eager_vs_unsharded": {
+            "losses": torch.equal(logs["eager"][0], logs["plain"][0]),
+            "y0": torch.equal(logs["eager"][1], logs["plain"][1]),
+            **_same(_state(eager), _state(plain))},
+    }
+    print(f"parallel P1 (1 NCCL rank, {PAR_ITERS} iterations of the flagship), bitwise: "
+          + json.dumps(same))
+    print(f"parallel P1: all-reduces posted: {capture_calls} by the captured chunk "
+          f"(warm-up + capture; the replays repeat the captured one), {eager_calls} by "
+          f"{PAR_ITERS} eager steps; the NCCL group's init {init_s:.2f} s")
+    _require(all(all(v.values()) for v in same.values()),
+             "P1: the 1-rank sharded trainer is not bitwise the unsharded one")
+    _require(capture_calls == 2 and eager_calls == PAR_ITERS,
+             "P1: the collective counter does not show one all-reduce per iteration")
+    return {"losses": logs["plain"][0].cpu(), "y0s": logs["plain"][1].cpu(),
+            "grads": [g.cpu() for g in grads], "capture_calls": capture_calls,
+            "eager_calls": eager_calls}
+
+
+def parallel_rank(out_dir: str) -> int:
+    """One of P2's two gloo ranks on the card (``--parallel-rank OUT_DIR``):
+    (i) the flagship sharded over "dp" = 2, its first gradient and 20
+    iterations; (ii) the dryrun configs at dp = 2 and the 2-D config at
+    dp x tp = 1 x 2; (iii) tensor parallelism at the surface recipe's
+    widths; (iv) the checkpoints of (i) and (iii); (v) the sharded
+    ensemble. Writes what it found to OUT_DIR/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from dnnpde_tpu_torch import parallel
+    from dnnpde_tpu_torch.parallel import model_sharding
+    from dnnpde_tpu_torch.parallel.distributed import all_reduce
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, HestonPDE
+    from dnnpde_tpu_torch.train import Trainer, train_ensemble
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.init_distributed()
+    try:
+        rank = dist.get_rank()
+        device = torch.device("cuda", torch.cuda.current_device())
+        zero_counts()
+        mesh = parallel.make_mesh(2)
+        out = {"backend": dist.get_backend(), "device": str(device)}
+        t0 = time.perf_counter()
+        probe = _flagship_trainer(device, mesh)
+        _, grads = probe._loss_and_grads(*probe._batch())
+        tr = _flagship_trainer(device, mesh)
+        tr.train(PAR_ITERS, 1e-3, "Adam", log_every=PAR_ITERS, verbose=False)
+        chunk = next(iter(tr._chunk_cache.values()))
+        tr.save_model(f"{out_dir}/flagship.pt")
+        out["flagship"] = {"grads": [g.cpu() for g in grads], "captured": chunk.graph is not None,
+                           "losses": chunk.losses[:PAR_ITERS].cpu(),
+                           "y0s": chunk.y0s[:PAR_ITERS].cpu(), "state": _state(tr),
+                           "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        mesh2d = parallel.make_mesh_2d(1, 2)
+        out["dryrun"] = {}
+        for name, (prob, layers, kw) in dryrun_configs().items():
+            m, M = (mesh2d, 4) if name == "dp_tp" else (mesh, 8)
+            sharded = Trainer(prob, M=M, N=4, layers=layers, seed=0, mesh=m, device=device, **kw)
+            out["dryrun"][name] = _final(sharded)
+        out["dryrun_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp = Trainer(HestonPDE(), M=PAR_TP_M, N=N_STEPS, layers=PAR_TP_LAYERS, seed=0,
+                     mesh=mesh2d, device=device)
+        res = tp.train(PAR_TP_ITERS, 1e-3, "Adam", log_every=1, verbose=False)
+        tp.save_model(f"{out_dir}/tp.pt")
+        out["tp"] = {"losses": res.graph[1], "y0s": res.y0_history,
+                     "summary": parallel.tp_sharding_summary(tp.params),
+                     "full": {k: v.cpu() for k, v in
+                              model_sharding.full_state_dict(tp.net).items()},
+                     "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        ens = train_ensemble(BlackScholesBarenblatt(D=4), mesh=mesh, device=device,
+                             **PAR_ENSEMBLE)
+        out["ensemble"] = {"losses": ens.losses, "y0s": ens.y0s,
+                           "seconds": time.perf_counter() - t0}
+        _sync(device)
+        out["counts"] = read_counts()
+        out["collectives"] = all_reduce.calls
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rel_max(a, ref) -> float:
+    """max |a - ref| over max |ref|."""
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _rel_each(a, ref) -> float:
+    """max over the elements of |a - ref| / |ref| (assert_allclose's rtol)."""
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(a - ref) / np.maximum(np.abs(ref), 1e-30)).max())
+
+
+def drive_parallel(device) -> dict:
+    """P2's ranks and P3's command start first (child processes, mostly
+    host-bound); this process runs P1 and computes P2's unsharded
+    references meanwhile. The launch counters are zeroed before and read
+    after, and P2's ranks report their own; P3's ranks, the CLI's own
+    processes, report none, so the path's count leaves them out. A failed rank, a collective's timeout or a child past its
+    wall limit fails the run. Every group meets over a file store or a port
+    of its own."""
+    import threading
+    from pathlib import Path
+
+    from dnnpde_tpu_torch.parallel.distributed import launch
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, HestonPDE
+    from dnnpde_tpu_torch.train import Trainer, train_ensemble
+
+    zero_counts()
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    cli_out = tmp / "cli"
+    cli_out.mkdir()
+    cmd = [sys.executable, "-m", "dnnpde_tpu_torch", *PAR_CLI, "--dp", "2", "--out",
+           str(cli_out), "--checkpoint", str(cli_out / "model.pt")]
+    logs = [open(cli_out / name, "w+") for name in ("stdout", "stderr")]
+    # its own process group, so that its ranks go with it if it must be killed
+    cli = subprocess.Popen(cmd, stdout=logs[0], stderr=logs[1], text=True,
+                           start_new_session=True)
+    p2: dict = {}
+
+    def run_ranks():
+        try:
+            launch(2, [sys.executable, __file__, "--parallel-rank", str(tmp)],
+                   store=str(tmp / "p2.store"), timeout_s=PAR_CHILD_WALL_S)
+        except BaseException as e:  # re-raised below, in this thread
+            p2["error"] = e
+        p2["seconds"] = time.perf_counter() - t0
+
+    ranks_thread = threading.Thread(target=run_ranks)
+    ranks_thread.start()
+    try:
+        p1 = check_parallel_nccl(device, str(tmp / "p1.store"))
+        t_p1 = time.perf_counter() - t0
+        refs = {}
+        for name, (prob, layers, kw) in dryrun_configs().items():
+            tr = Trainer(prob, M=4 if name == "dp_tp" else 8, N=4, layers=layers, seed=0,
+                         device=device, **kw)
+            refs[name] = _final(tr)
+        tp_ref = Trainer(HestonPDE(), M=PAR_TP_M, N=N_STEPS, layers=PAR_TP_LAYERS, seed=0,
+                         device=device).train(PAR_TP_ITERS, 1e-3, "Adam", log_every=1,
+                                              verbose=False)
+        ens_ref = train_ensemble(BlackScholesBarenblatt(D=4), device=device, **PAR_ENSEMBLE)
+        _sync(device)
+        t_refs = time.perf_counter() - t0
+        ranks_thread.join()
+        if "error" in p2:
+            raise p2["error"]
+        rc = cli.wait(timeout=max(1.0, PAR_CHILD_WALL_S - (time.perf_counter() - t0)))
+        t_cli = time.perf_counter() - t0
+    finally:
+        ranks_thread.join()
+        if cli.poll() is None:
+            os.killpg(cli.pid, signal.SIGKILL)
+            cli.wait()
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
+    for f in logs:
+        f.close()
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    loaded = {}
+    for name in ("flagship", "tp"):
+        plain = (_flagship_trainer(device) if name == "flagship" else Trainer(
+            HestonPDE(), M=PAR_TP_M, N=N_STEPS, layers=PAR_TP_LAYERS, seed=3, device=device))
+        plain.load_model(str(tmp / f"{name}.pt"))
+        loaded[name] = {k: v.detach().cpu() for k, v in plain.net.named_parameters()}
+    counts = read_counts()
+    return {"p1": p1, "ranks": ranks, "refs": refs, "tp_ref": tp_ref, "ens_ref": ens_ref,
+            "loaded": loaded, "cli": subprocess.CompletedProcess(cmd, rc, stdout, stderr),
+            "cli_out": cli_out,
+            "counts": {k: v + sum(r["counts"][k] for r in ranks) for k, v in counts.items()},
+            "seconds": {"P1": t_p1, "P2_ranks": p2["seconds"], "P2_references": t_refs,
+                        "P3": t_cli, "in_all": time.perf_counter() - t0}}
+
+
+def check_parallel(run) -> None:
+    """P2: both ranks on gloo, nothing captured, the flagship's first
+    gradient, losses and Y0s within 1e-5 of the unsharded trainer's, both
+    ranks' state bitwise equal; each dryrun delta within 5e-5; tensor
+    parallelism within rtol 1e-3 of the replicated trainer, its wide layers
+    sharded; each checkpoint read back bitwise by an unsharded trainer; the
+    ensemble within rtol 1e-4. P3: rc 0, one summary with the JAX keys, the
+    logged loss falling. No kernel launched here or in P2's ranks (P3's
+    ranks are the CLI's own processes, whose counters are not read)."""
+    p1, ranks = run["p1"], run["ranks"]
+    r0, r1 = ranks
+    _require([r["backend"] for r in ranks] == ["gloo", "gloo"], "P2: the ranks are not on gloo")
+    _require(r0["device"] == r1["device"] == "cuda:0", "P2: the ranks do not share cuda:0")
+    f0, f1 = r0["flagship"], r1["flagship"]
+    _require(not f0["captured"], "P2: a gloo chunk was captured")
+    grad_err = max(_rel_max(g, ref) for g, ref in zip(f0["grads"], p1["grads"]))
+    loss_err = _rel_each(f0["losses"], p1["losses"])
+    y0_err = _rel_each(f0["y0s"], p1["y0s"])
+    same = _same(f0["state"], f1["state"])
+    print(f"parallel P2 (2 gloo ranks on cuda:0) flagship, {PAR_ITERS} iterations against the "
+          f"unsharded trainer: first gradient {grad_err:.3e} of each tensor's max, losses "
+          f"{loss_err:.3e}, Y0 {y0_err:.3e} relative (tol {PAR_REL_TOL}); ranks' state "
+          f"bitwise: {json.dumps(same)}; {f0['seconds']:.2f} s")
+    _require(max(grad_err, loss_err, y0_err) <= PAR_REL_TOL, "P2: the flagship parts from "
+             "the unsharded trainer")
+    _require(all(same.values()), "P2: the ranks' parameters or Adam state differ")
+    deltas = {}
+    for name, ref in run["refs"].items():
+        ours = r0["dryrun"][name]
+        _require(ours == r1["dryrun"][name], f"P2 dryrun {name}: the ranks disagree")
+        deltas[name] = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ours, ref))
+    print("parallel P2 dryrun (loss and Y0, relative to the unsharded trainer): "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in deltas.items()})
+          + f"; {r0['dryrun_seconds']:.2f} s")
+    _require(max(deltas.values()) <= PAR_DRYRUN_TOL, "P2: a dryrun config parts from the "
+             "unsharded trainer beyond 5e-5")
+    tp, ref = r0["tp"], run["tp_ref"]
+    tp_err = max(_rel_each(tp["losses"], ref.graph[1]), _rel_each(tp["y0s"], ref.y0_history))
+    sharded = [k for k, v in tp["summary"].items() if v.startswith("Shard")]
+    print(f"parallel P2 tensor parallelism [3, 512 x 4, 1], M = {PAR_TP_M}, {PAR_TP_ITERS} "
+          f"iterations: losses and Y0 {tp_err:.3e} relative (rtol {PAR_TP_RTOL}); sharded "
+          f"{sharded}; {tp['seconds']:.2f} s")
+    _require(len(sharded) == 6, "P2: the TP plan did not shard the four wide layers")
+    _require(tp_err <= PAR_TP_RTOL, "P2: tensor parallelism parts from the replicated trainer")
+    ck = {"flagship": all(torch.equal(v, p) for v, p in
+                          zip(run["loaded"]["flagship"].values(), f0["state"]["params"])),
+          "tp": all(torch.equal(v, tp["full"][k]) for k, v in run["loaded"]["tp"].items())}
+    print(f"parallel P2 checkpoints read back by an unsharded trainer, bitwise: {json.dumps(ck)}")
+    _require(all(ck.values()), "P2: a sharded checkpoint did not read back bit for bit")
+    ens, eref = r0["ensemble"], run["ens_ref"]
+    ens_err = max(_rel_each(ens["losses"], eref.losses), _rel_each(ens["y0s"], eref.y0s))
+    print(f"parallel P2 ensemble (8 members over 2 ranks): {ens_err:.3e} relative "
+          f"(rtol {PAR_ENSEMBLE_RTOL}); {ens['seconds']:.2f} s")
+    _require(ens_err <= PAR_ENSEMBLE_RTOL, "P2: the sharded ensemble parts from the unsharded")
+    _require(np.array_equal(ens["losses"], r1["ensemble"]["losses"]),
+             "P2: the ranks gathered different ensembles")
+    proc = run["cli"]
+    _require(proc.returncode == 0, f"P3: --dp 2 exit code {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    summaries = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"problem"')]
+    _require(len(summaries) == 1, f"P3: {len(summaries)} summaries printed")
+    summary = json.loads(summaries[0])
+    _require(list(summary) == CLI_SUMMARY_KEYS, f"P3: summary keys {list(summary)}")
+    saved = torch.load(run["cli_out"] / "model.pt", weights_only=True)["metadata"]
+    losses = saved["training_loss"]
+    print(f"parallel P3 (python3 -m dnnpde_tpu_torch {' '.join(PAR_CLI)} --dp 2): rc 0, one "
+          f"summary, logged mean loss {losses[0]:.4e} -> {losses[-1]:.4e}, learned Y0 "
+          f"{summary['learned_y0']:.4f}, {summary['iters_per_sec']:.2f} it/s")
+    _require(losses[-1] < losses[0], "P3: the loss did not fall")
+    print("parallel path: seconds (P1 and P2's references here, P2's ranks and P3 run at once, "
+          "each from the start) " + json.dumps({k: round(v, 2) for k, v in run["seconds"].items()})
+          + f"; kernel launches in this process and P2's ranks {json.dumps(run['counts'])} "
+          "(P3's ranks, processes of the CLI, are not counted)")
+    _require(not any(run["counts"].values()), f"parallel path launched kernels: {run['counts']}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2872,9 +3264,19 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
 
-    t0 = time.perf_counter()
+    phase_s: dict = {}
+    last = [t_start]
+
+    def lap(name: str) -> None:
+        """Charge the seconds since the last lap to phase ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = round(phase_s.get(name, 0.0) + now - last[0], 1)
+        last[0] = now
+
+    lap("start")
     _build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    lap("build")
+    print(f"kernel build: {phase_s['build']:.1f} s")
 
     from dnnpde_tpu_torch.pde import BasketCallOption, BlackScholesBarenblatt
 
@@ -2888,44 +3290,55 @@ def main() -> int:
     k4 = check_k4(device)
     check_train_step(net, device)
     check_train_step(net, device, BasketCallOption(D=D), "basket train step")
+    lap("kernel_checks")
 
     train = drive_training(device)
     check_training(train)
     check_captured_chunk(device)
+    lap("training")
     drive_phases(device)
+    lap("training_phases")
     run = drive_serving(train["trainer"], device)
     check_serving(run, device)
+    lap("serving")
     basket = drive_basket(device)
     check_basket(basket, device)
+    lap("basket")
     check_harness_capture(device)
     harness = drive_harness(device)
     check_harness(harness)
+    lap("harness")
     check_stopping_step(device)
     check_stopping_capture(device)
     stopping = drive_stopping(device)
     check_stopping(stopping)
+    lap("stopping")
     cli_run = drive_cli(device)
     check_cli(cli_run)
+    lap("cli")
     check_sdenet_capture(device)
     sde = drive_sdenet(device)
     check_sdenet(sde)
+    lap("sdenet")
     surface = drive_surface(device)
     check_surface(surface)
+    lap("surface")
     execs = drive_executors(device)
     check_executors(execs)
-    t0 = time.perf_counter()
+    lap("executors")
     replica_check = check_replica_capture(device)
     replicas = drive_replicas(device)
     check_replicas(replicas)
-    print(f"replica phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    lap("replicas")
     ensembles = drive_ensembles(device)
     check_ensembles(ensembles)
-    print(f"ensemble phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    lap("ensembles")
     oracles = drive_oracles_rest(device)
     check_oracles_rest(oracles)
-    print(f"oracles phase: {time.perf_counter() - t0:.1f} s")
+    lap("oracles")
+    par = drive_parallel(device)
+    check_parallel(par)
+    lap("parallel")
 
     print("training rate: " + json.dumps(time_training(device)))
     print("training iteration (traced, captured chunk): " + json.dumps(trace_iteration(device)))
@@ -2952,17 +3365,19 @@ def main() -> int:
         {name: r["seconds"] for name, r in execs["calls"].items()}))
     print("replica rate (K = 3, captured) beside one solo Trainer: "
           + json.dumps(replica_check["rate"]))
+    lap("timing")
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
     k3.update(k3_seed)
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
     k4.update(time_k4(device)["basket"])  # the basket path's shape
+    lap("kernel_timing")
 
     paths = {"training": train, "serving": run, "basket": basket, "harness": harness,
              "stopping": stopping, "cli": cli_run, "sdenet": sde, "surface": surface,
              "executors": execs, "replicas": replicas, "ensembles": ensembles,
-             "oracles": oracles}
+             "oracles": oracles, "parallel": par}
 
     def launches(name, traced_names=()):
         """The kernel's launches on each path: on the training, basket and
@@ -2999,6 +3414,7 @@ def main() -> int:
          "replaces": "dnnpde_tpu/ops/path_kernel.py:180",
          **launches("gbm_terminal"), **k4},
     ]
+    print("phase seconds: " + json.dumps(phase_s))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,15 +10,21 @@ CPU), grades the learned Y0 against the problem's oracle, and writes the
 loss and prediction plots and ``summary.json`` to ``--out``. The flags,
 their defaults and the summary's keys are the JAX CLI's. ``--problem heston
 --surface`` runs the Heston surface executor instead (exit code 0 exactly
-when the IV smile's ``ok`` holds). ``--dp`` (data parallelism) is not
-ported yet and raises ``NotImplementedError``. Without matplotlib the plots
-are written as ``.npz`` arrays (``evals/plots.py``).
+when the IV smile's ``ok`` holds). ``--dp n`` shards the paths over n ranks
+(``parallel.make_mesh``): under torchrun (``WORLD_SIZE`` set) the process
+joins that group, whose size must be n; otherwise the command starts n
+local ranks of itself (``parallel.distributed.launch``) and returns the
+worst exit code. Every rank trains; rank 0 alone writes the summary, the
+plots, the checkpoint and the export. Without matplotlib the plots are
+written as ``.npz`` arrays (``evals/plots.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 import time
 from pathlib import Path
 
@@ -335,26 +341,61 @@ def oracle_y0(problem, args, device=None) -> float | None:
     return None
 
 
-def main(argv=None, device=None) -> int:
-    """Run the CLI on ``device`` (None: the first CUDA card; raises without
-    one)."""
-    args = build_parser().parse_args(argv)
-    import torch
+# a local rank of ``--dp``: ``python -c _RANK_MAIN DEVICE ARGV...``
+_RANK_MAIN = (
+    "import sys\n"
+    "from dnnpde_tpu_torch.cli import main\n"
+    "raise SystemExit(main(sys.argv[2:], device=sys.argv[1]))\n"
+)
 
-    from dnnpde_tpu_torch.evals import PredictionGenerator, TrainingPlot
+
+def main(argv=None, device=None) -> int:
+    """Run the CLI on ``device`` (None: the first CUDA card, or each
+    rank's own under ``--dp``; raises without one)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    import torch.distributed as dist
+
     from dnnpde_tpu_torch.runtime import default_device
-    from dnnpde_tpu_torch.train import Trainer
 
     # The JAX CLI's DNNPDE_COMPILATION_CACHE names XLA's persistent cache;
     # nothing here compiles through XLA, so the variable has no counterpart.
-    device = default_device(device)
+    resolved = default_device(device)
     if args.surface:
-        return _surface_main(args, device)
-    if args.dp:
-        raise NotImplementedError(
-            "--dp (data parallelism over devices) is not ported yet "
-            "(ROADMAP.md Queue 1: parallel/)")
+        return _surface_main(args, resolved)
+    if not args.dp:
+        return _train_main(args, resolved, None)
+    from dnnpde_tpu_torch import parallel
+    from dnnpde_tpu_torch.parallel.distributed import launch
 
+    if "WORLD_SIZE" not in os.environ:
+        try:
+            launch(args.dp, [sys.executable, "-c", _RANK_MAIN,
+                             "cuda" if device is None else str(device), *argv],
+                   capture=False, timeout_s=None)
+        except RuntimeError as e:
+            print(f"--dp {args.dp}: {e}", file=sys.stderr)
+            return 1
+        return 0
+    parallel.init_distributed(device=device)
+    try:
+        if dist.get_world_size() != args.dp:
+            raise ValueError(f"--dp {args.dp} in a group of {dist.get_world_size()} ranks")
+        return _train_main(args, default_device(device),
+                           parallel.make_mesh(args.dp, devices=device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_main(args, device, mesh) -> int:
+    """Train, grade and write the outputs (on a mesh: every rank trains,
+    rank 0 writes)."""
+    import torch
+
+    from dnnpde_tpu_torch.evals import PredictionGenerator, TrainingPlot
+    from dnnpde_tpu_torch.train import Trainer
+
+    main_rank = mesh is None or mesh.get_rank() == 0
     problem = make_problem(args)
     if args.objective == "global" and (
         getattr(problem, "early_exercise", False)
@@ -370,7 +411,7 @@ def main(argv=None, device=None) -> int:
     trainer = Trainer(
         problem, M=args.M, N=args.N, layers=layers, mode=args.mode,
         activation=args.activation, Mm=args.Mm,
-        correlation_type=args.correlation, seed=args.seed,
+        correlation_type=args.correlation, seed=args.seed, mesh=mesh,
         net_kwargs=(
             {"compute_dtype": args.compute_dtype} if args.compute_dtype else None
         ),
@@ -390,11 +431,15 @@ def main(argv=None, device=None) -> int:
                        log_every=args.log_every, verbose=not args.quiet)
     if args.polish:
         losses = trainer.polish(n_iter=args.polish, M=args.polish_m)
-        if not args.quiet:
+        if not args.quiet and main_rank:
             print(f"polish: LBFGS {args.polish} steps on a frozen "
                   f"antithetic batch of {args.polish_m}: loss "
                   f"{losses[0]:.3e} -> {losses[-1]:.3e}")
     wall = time.time() - t0
+    if args.checkpoint:  # on a mesh a collective: every rank saves, rank 0 writes
+        trainer.save_model(args.checkpoint)
+    if not main_rank:
+        return 0
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -474,8 +519,6 @@ def main(argv=None, device=None) -> int:
             # does not exist — report why instead of discarding the training
             summary["cv_price"] = {"error": str(e)}
     (out / "summary.json").write_text(json.dumps(summary, indent=2))
-    if args.checkpoint:
-        trainer.save_model(args.checkpoint)
     if args.export:
         from dnnpde_tpu_torch.serve import save_solution
 

@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-from scipy.stats import norm
 
 
 def basket_moments(S0, sigma, T: float, r: float, corr: Optional[np.ndarray] = None,
@@ -45,6 +44,8 @@ def moment_matched_basket_call(S0, K: float, T: float, r: float, sigma,
                                weights: Optional[np.ndarray] = None) -> float:
     """E[e^{−rT}(B_T − K)⁺] under the matched lognormal:
     e^{−rT}(e^{μ+s²/2}Φ(d1) − KΦ(d2))."""
+    from scipy.stats import norm  # imported here: scipy.stats takes seconds to load
+
     m1, m2, _ = basket_moments(S0, sigma, T, r, corr, weights)
     mu, s2 = match_lognormal(m1, m2)
     s = np.sqrt(s2)

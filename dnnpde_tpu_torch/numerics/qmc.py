@@ -22,8 +22,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from scipy.stats import norm as _norm
-from scipy.stats import qmc as _qmc
 
 from dnnpde_tpu_torch.numerics.discrete_bsde import euler_terminal_states, probe_linear_driver
 from dnnpde_tpu_torch.runtime import default_device
@@ -106,6 +104,8 @@ def sobol_brownian_increments(
         )
     m = int(np.ceil(np.log2(max(n, 2))))
     n = 1 << m
+    from scipy.stats import norm as _norm, qmc as _qmc  # scipy.stats takes seconds to load
+
     eng = _qmc.Sobol(d=dim, scramble=True, seed=seed)
     u = eng.random_base2(m)
     # scrambling keeps points in (0, 1) almost surely; clip for ppf safety

@@ -1,7 +1,8 @@
 """Device selection for the PyTorch port.
 
-Entry points take ``device=None``, which means the first CUDA card. The CPU
-is used only when the caller asks for it by name; there is no silent fallback.
+Entry points take ``device=None``, which means the current CUDA card (the
+first, unless ``parallel.init_distributed`` set this rank's). The CPU is
+used only when the caller asks for it by name; there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ import torch
 
 
 def default_device(device=None) -> torch.device:
-    """Resolve ``device``: None → ``cuda:0``; raises if CUDA is absent and the
+    """Resolve ``device``: None → the current CUDA card (``cuda:0`` unless a
+    rank of a parallel run set its own); raises if CUDA is absent and the
     caller did not ask for the CPU explicitly."""
     if device is None:
-        device = "cuda:0"
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -243,7 +243,7 @@ def make_loss_fn(
     functional: bool = False,
 ) -> Callable:
     """Build loss(net, ts, dWs, X0, paths=True, target_params=None,
-    noise=None) → RolloutResult.
+    noise=None, weights=None) → RolloutResult.
 
     ``functional=True`` builds the loss for evaluation under ``torch.func``
     transforms (the replica programs of ``train/replicas.py`` vmap its
@@ -269,6 +269,9 @@ def make_loss_fn(
         that shape on the batch's device (the Trainer's draws from its
         generator); None draws from a fresh generator seeded 0 (JAX's
         default ``PRNGKey(0)``). Ignored otherwise.
+      weights: the rows' path weights, (M,) or (M, 1), in place of
+        ``config.path_weight_fn(X0)`` (a data-parallel rank's share of the
+        weights of the whole batch, whose normalization is global).
     """
     _check_config(problem, config)
     bind = _bind_net_u(problem, net, config, functional)
@@ -290,11 +293,12 @@ def make_loss_fn(
         with torch.no_grad():
             return problem.transform_u(t, X, target(inp) if eps is None else target(inp, eps))
 
-    def path_weights(X0):
-        if config.path_weight_fn is None:
-            return None
-        w = torch.as_tensor(config.path_weight_fn(X0))
-        return w.reshape(X0.shape[0], 1)
+    def path_weights(X0, weights):
+        if weights is None:
+            if config.path_weight_fn is None:
+                return None
+            weights = config.path_weight_fn(X0)
+        return torch.as_tensor(weights).reshape(X0.shape[0], 1)
 
     def weighted_sum(vec, w):
         """Σ_m w_m · vec_m for a per-path (M, 1) vector."""
@@ -365,7 +369,8 @@ def make_loss_fn(
 
     def loss_fn(module: torch.nn.Module, ts: Tensor, dWs: Tensor, X0: Tensor,
                 paths: bool = True, target_params: Optional[torch.nn.Module] = None,
-                noise: Optional[Callable] = None) -> RolloutResult:
+                noise: Optional[Callable] = None,
+                weights: Optional[Tensor] = None) -> RolloutResult:
         if target_params is not None and not local:
             raise ValueError("target_params requires objective='local'")
         N = dWs.shape[0]
@@ -385,7 +390,7 @@ def make_loss_fn(
             """The next evaluation's noise, drawn outside any recomputed step."""
             return module.draw_noise(noise, M) if stochastic else None
 
-        w = path_weights(X0)
+        w = path_weights(X0, weights)
         # step 0, peeled: Y0 comes from this evaluation
         eps = draw()
         Y0, Z0 = net_u(ts[0], X0, eps)

@@ -16,8 +16,13 @@ The per-iteration loss and Y0 of every member are written into a device
 buffer at a device-side iteration index, and the n_iter iterations run as
 one chunk (one captured iteration, replayed, on a CUDA device).
 
-Meshes (the reference shards the member axis over chips) wait for ROADMAP.md
-Queue 1, item 5.
+With ``mesh`` (``parallel.make_mesh``) the member axis goes over "dp", as
+the reference shards it over chips: the rank at index r of "dp" runs members
+r·K/dp … (r+1)·K/dp − 1 (the same seeds as unsharded) as one
+``ReplicaProgram``, and the members' results are gathered on every rank by
+one all-reduce each of a zero-filled (K, …) buffer into which each rank
+writes its own rows (x + 0 is exact; gloo has no all-gather of CUDA
+tensors). K must be divisible by the "dp" size.
 """
 
 from __future__ import annotations
@@ -28,12 +33,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from dnnpde_tpu_torch.parallel.distributed import gather_rows
+from dnnpde_tpu_torch.parallel.mesh import DP_AXIS, axis_size
 from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.solver.bsde import SolverConfig
 from dnnpde_tpu_torch.train.replicas import PRECONDITIONERS, ReplicaProgram
-
-_MESH_LATER = "is not ported yet (ROADMAP.md Queue 1, item 5: parallel/)"
-
 
 @dataclasses.dataclass
 class EnsembleResult:
@@ -43,18 +47,38 @@ class EnsembleResult:
     final_loss: np.ndarray  # (K,)
 
 
+def _shard_members(K: int, mesh) -> tuple[int, int]:
+    """(first member, member count) of this rank's share of K members over
+    the mesh's "dp" dim (all K without a mesh)."""
+    if mesh is None:
+        return 0, K
+    n = axis_size(mesh, DP_AXIS)
+    if K % n:
+        raise ValueError(f"n_members={K} not divisible by dp={n}")
+    k = K // n
+    return mesh.get_local_rank(DP_AXIS) * k, k
+
+
+def _gather_members(local: torch.Tensor, K: int, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's members of ``local`` (members along ``dim``), in member
+    order, on every rank."""
+    return local if mesh is None else gather_rows(local, K, mesh.get_group(DP_AXIS), dim)
+
+
 def _program(problem, K, M, N, layers, mode, activation, optimizer_type, clip_norm, seed,
-             config, mesh, capacity, device) -> ReplicaProgram:
-    if mesh is not None:
-        raise NotImplementedError(f"ensemble training over a mesh {_MESH_LATER}")
+             config, mesh, capacity, device) -> tuple[ReplicaProgram, int, int]:
+    """This rank's members as one program, with (first member, member
+    count) of its share."""
+    first, k = _shard_members(K, mesh)
     if optimizer_type.lower() not in PRECONDITIONERS:
         raise ValueError(f"ensemble supports {sorted(PRECONDITIONERS)}, got {optimizer_type!r}")
     layers = list(layers) if layers else [problem.dim + 1, 64, 64, 64, 64, 1]
     cfg = config or SolverConfig(remat=False, stochastic_net=mode.lower() == "sdenet")
-    return ReplicaProgram(
-        problem, [seed + k for k in range(K)], M=M, N=N, layers=layers, mode=mode,
+    prog = ReplicaProgram(
+        problem, [seed + first + j for j in range(k)], M=M, N=N, layers=layers, mode=mode,
         activation=activation, optimizer_type=optimizer_type, clip_norm=clip_norm,
         objective=cfg.objective, config=cfg, capacity=capacity, device=device)
+    return prog, first, k
 
 
 def train_ensemble(
@@ -77,18 +101,21 @@ def train_ensemble(
     """Train ``n_members`` independently initialized models as one program.
 
     ``learning_rates``: one number (shared) or one per member, for lr
-    sweeps. ``mesh`` raises NotImplementedError (ROADMAP.md Queue 1,
-    item 5). ``device``: None = the first CUDA card (raises without one);
+    sweeps. ``mesh``: the member axis over its "dp" dim (n_members
+    divisible by its size). ``device``: None = the first CUDA card (raises without one);
     "cpu" trains on the CPU.
     """
-    prog = _program(problem, n_members, M, N, layers, mode, activation, optimizer_type,
-                    clip_norm, seed, config, mesh, n_iter, device)
-    prog.new_phase(np.broadcast_to(np.asarray(learning_rates, np.float32), (n_members,)).copy())
+    K = n_members
+    prog, first, k = _program(problem, K, M, N, layers, mode, activation, optimizer_type,
+                              clip_norm, seed, config, mesh, n_iter, device)
+    lrs = np.broadcast_to(np.asarray(learning_rates, np.float32), (K,))
+    prog.new_phase(lrs[first:first + k].copy())
     prog.run(n_iter)
-    losses, y0s = prog.logs(n_iter)
+    logs = [_gather_members(t[:n_iter], K, mesh, 1).cpu().numpy()
+            for t in (prog.losses, prog.y0s)]
     return EnsembleResult(
-        params={n: p.clone() for n, p in prog.params.items()},
-        losses=losses.T.copy(), y0s=y0s.T.copy(), final_loss=losses[-1].copy())
+        params={n: _gather_members(p.detach(), K, mesh).clone() for n, p in prog.params.items()},
+        losses=logs[0].T.copy(), y0s=logs[1].T.copy(), final_loss=logs[0][-1].copy())
 
 
 def train_sensitivity_ensemble(
@@ -124,18 +151,19 @@ def train_sensitivity_ensemble(
     n1 = np.array([max(1, int(h["initial_n_iter"] * iter_scale)) for h in hyperparams])
     n2 = np.array([max(1, int(h["fine_tuning_n_iter"] * iter_scale)) for h in hyperparams])
     n_total = int((n1 + n2).max())
-    prog = _program(problem, K, M, N, layers, mode, activation, optimizer_type, clip_norm,
-                    seed, config, mesh, n_total, device)
+    prog, first, k = _program(problem, K, M, N, layers, mode, activation, optimizer_type,
+                              clip_norm, seed, config, mesh, n_total, device)
     dev = prog.device
+    mine = slice(first, first + k)
 
     def f32(values):
-        return torch.tensor(np.asarray(values, np.float32), device=dev)
+        return torch.tensor(np.asarray(values, np.float32)[mine], device=dev)
 
-    prog.lr_switch = (torch.tensor(n1, dtype=torch.long, device=dev),
+    prog.lr_switch = (torch.tensor(n1[mine], dtype=torch.long, device=dev),
                       f32([h["initial_lr"] for h in hyperparams]),
                       f32([h["fine_tuning_lr"] for h in hyperparams]))
     prog.run(n_total)
     i = torch.arange(n_total, device=dev)[:, None]
-    total = torch.tensor(n1 + n2, dtype=torch.long, device=dev)[None, :]
+    total = torch.tensor((n1 + n2)[mine], dtype=torch.long, device=dev)[None, :]
     losses = torch.where(i < total, prog.losses[:n_total], torch.inf)
-    return losses.min(dim=0).values.cpu().numpy()
+    return _gather_members(losses.min(dim=0).values, K, mesh).cpu().numpy()

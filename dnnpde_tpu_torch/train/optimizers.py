@@ -82,6 +82,9 @@ class Optimizer:
         self.schedule = learning_rate if callable(learning_rate) else None
         self.learning_rate = learning_rate if self.schedule else float(learning_rate)
         self.clip_norm = clip_norm
+        # grads -> their squared global norm; None sums the given tensors (a
+        # tensor-parallel trainer sets one that adds the other ranks' shards)
+        self.sq_norm: Optional[Callable[[Sequence[Tensor]], Tensor]] = None
 
     def _lr(self, count: Tensor) -> Tensor:
         """The schedule's rate at ``count``, as an f32 tensor beside it."""
@@ -103,7 +106,8 @@ class Optimizer:
         """(updates, new state); the inputs are not modified."""
         g = list(grads)
         if self.clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            sq = sum(torch.sum(x * x) for x in g) if self.sq_norm is None else self.sq_norm(g)
+            norm = torch.sqrt(sq)
             keep = norm < self.clip_norm
             g = [torch.where(keep, x, (x / norm) * self.clip_norm) for x in g]
         lr = self._lr(state["count"]) if self.schedule else state["lr"]

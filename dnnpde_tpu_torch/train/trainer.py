@@ -41,8 +41,21 @@ counterpart of ``dnnpde_tpu/train/trainer.py``.
   graph cannot capture. The choice is made by optimizer type, never by a
   failed capture. ``polish`` runs LBFGS on one frozen batch.
 
-Not ported yet, and raising ``NotImplementedError``: meshes (ROADMAP.md
-Queue 1).
+- ``mesh`` (``parallel.make_mesh`` / ``make_mesh_2d``) shards the paths
+  over its "dp" dim: every rank draws the whole batch (increments, X0, a
+  stochastic net's noise; path weights from the whole X0) from its
+  generator, as the JAX Trainer draws globally, and keeps its M/dp rows.
+  The local loss and gradients, Y0 from the rank at index 0 of "dp" (JAX's
+  Y0 is the first path's) and, with ``track_best``, the rows' (X, Y) go
+  into one flat buffer summed over "dp" by one all-reduce; clipping, the
+  NaN guard, the collapse check and the best state then act on global
+  values, and parameters, optimizer state and EMA stay bitwise equal on
+  every rank. With a "tp" dim the wide layers hold their shard
+  (``parallel.model_sharding``); checkpoints hold the full weights, written
+  by rank 0. A chunk is captured into a CUDA graph only when every group is
+  NCCL (its all-reduces then replay inside the graph); over gloo, whose
+  collectives the host drives, it runs eagerly. The choice is made by the
+  groups' backend, never by a failed capture.
 """
 
 from __future__ import annotations
@@ -58,8 +71,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dnnpde_tpu_torch.nets import build_network
+from dnnpde_tpu_torch.parallel import model_sharding
+from dnnpde_tpu_torch.parallel.distributed import all_reduce
+from dnnpde_tpu_torch.parallel.mesh import DP_AXIS, axis_size
 from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import default_device, full_f32_matmul
 from dnnpde_tpu_torch.sim.brownian import brownian_increments, brownian_paths, time_grid
@@ -76,8 +93,6 @@ from dnnpde_tpu_torch.train.optimizers import LBFGS, LearningRate, build_optimiz
 from dnnpde_tpu_torch.train.schedules import TimeStepRefinement
 
 Tensor = torch.Tensor
-
-_LATER = "is not ported yet (ROADMAP.md Queue 1)"
 
 
 @dataclasses.dataclass
@@ -221,7 +236,11 @@ class Trainer:
         ``ema_decay``).
       path_weight_fn, z_match_weight, z_match_mask: the loss options of
         :class:`SolverConfig`, set on the given or the automatic config.
-      device: None = the first CUDA card (raises without one); pass "cpu"
+      mesh: a ``DeviceMesh`` with a "dp" dim (and optionally "tp") over the
+        ranks of ``parallel.init_distributed``'s group: shard the paths
+        (M divisible by the "dp" size) and the wide layers. Every rank
+        builds the same Trainer and calls the same methods.
+      device: None = the current CUDA card (raises without one); pass "cpu"
         to train on the CPU.
     """
 
@@ -255,8 +274,6 @@ class Trainer:
         z_match_mask=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"Trainer(mesh=...) {_LATER}")
         self.device = default_device(device)
         self.problem = problem
         self.M = int(M)
@@ -329,8 +346,25 @@ class Trainer:
         self.config = solver_config
 
         self.net = self._init_net(seed)
+        self.mesh = mesh
+        names = () if mesh is None else tuple(mesh.mesh_dim_names)
+        self._n_dp = axis_size(mesh, DP_AXIS)
+        if self.M % self._n_dp:
+            raise ValueError(f"batch size M={self.M} must be divisible by the dp mesh "
+                             f"axis size {self._n_dp}")
+        # the "dp" group and this rank's index in it (None: the batch is not sharded)
+        self._dp_group = mesh.get_group(DP_AXIS) if DP_AXIS in names else None
+        self._dp_index = mesh.get_local_rank(DP_AXIS) if DP_AXIS in names else 0
+        self._flat: dict[int, Tensor] = {}  # the all-reduce's buffers, by size
+        self._tp = model_sharding.TP_AXIS in names
+        if self._tp:
+            model_sharding.shard_params_tp(self.net, mesh)
+        groups = [mesh.get_group(n) for n in names]
+        self._capturable = all(dist.get_backend(g) == "nccl" for g in groups)
+        self._is_main = mesh is None or dist.get_rank() == 0
         self.params = self.net  # the module holds the parameters (JAX: the tree)
         self._params = list(self.net.parameters())
+        self._shard_dims = model_sharding.shard_dims(self.net)
 
         if correlation_type == "no_correlation":
             self.chol = None
@@ -373,9 +407,7 @@ class Trainer:
         shadow and history for a fresh run, in place, KEEPING the captured
         training iterations (as the JAX Trainer keeps its compiled chunks).
         Returns self."""
-        with torch.no_grad():
-            for p, q in zip(self._params, self._init_net(seed).parameters()):
-                p.copy_(q)
+        self._load_full(dict(self._init_net(seed).named_parameters()))
         self.generator.manual_seed(seed + 1)
         if self._opt_state is not None:  # re-initialized as the next train() would
             with torch.no_grad():
@@ -398,9 +430,8 @@ class Trainer:
                 f"{self.mode}/{self.activation}/{self.layers} vs "
                 f"{other.mode}/{other.activation}/{other.layers}"
             )
+        self._load_full(model_sharding.full_state_dict(other.net))
         with torch.no_grad():
-            for p, q in zip(self._params, other._params):
-                p.copy_(q)
             if self._opt_state is not None:
                 _assign(self._opt_state, self._tx.init(self._params))
         self._set_ema(other._ema)
@@ -410,6 +441,15 @@ class Trainer:
         self.iteration = list(other.iteration)
         self.y0_log = list(other.y0_log)
         return self
+
+    def _load_full(self, state: dict, net: Optional[torch.nn.Module] = None) -> None:
+        """Copy full parameters (name -> tensor) into ``net`` (default the
+        trained net), into its shards on a "tp" mesh."""
+        net = self.net if net is None else net
+        if self._tp:
+            model_sharding.load_full_state_dict(net, state)
+        else:
+            net.load_state_dict(state)
 
     # ------------------------------------------------------------------- EMA
     @property
@@ -496,6 +536,10 @@ class Trainer:
         if self._opt_state is not None and self._opt_sig == sig and not fresh:
             return
         tx = build_optimizer(optimizer_type, learning_rate)
+        if self._tp:
+            if isinstance(tx, LBFGS):
+                raise ValueError("LBFGS does not run on a tensor-parallel mesh")
+            tx.sq_norm = self._tp_sq_norm
         state = tx.init(self._params)
         prev = self._opt_sig
         if (self._opt_state is None or schedule or prev is None or callable(prev[1])
@@ -508,6 +552,67 @@ class Trainer:
         self._tx = tx
         self._opt_sig = sig
 
+    def _tp_sq_norm(self, grads) -> Tensor:
+        """The squared global norm of the gradients on a "tp" mesh: the
+        replicated tensors' own, plus the shards' summed over "tp"."""
+        dims = self._shard_dims
+        sq = sum(torch.sum(g * g) for g, d in zip(grads, dims) if d is None)
+        shards = [torch.sum(g * g) for g, d in zip(grads, dims) if d is not None]
+        if not shards:
+            return sq
+        return sq + all_reduce(torch.stack(shards).sum(), self.net.tp_group.pg)
+
+    def _loss_and_grads(self, ts: Tensor, dWs: Tensor, X0: Tensor, paths: bool = False,
+                        target=None, noise=None) -> tuple[RolloutResult, list]:
+        """The loss of a batch (ts (N+1,M,1), dWs (N,M,D), X0 (M,D)) and its
+        gradients. Under a "dp" mesh the loss runs on this rank's rows (a
+        stochastic net's noise and the path weights drawn or computed for
+        the whole batch, then cut to them), and the loss, the gradients, Y0
+        of the batch's first path and, with ``paths``, X and Y come back
+        summed over "dp" from one all-reduce."""
+        if self._dp_group is None:
+            res = self.loss_fn(self.net, ts, dWs, X0, paths=paths, target_params=target,
+                               noise=noise)
+            return res, list(torch.autograd.grad(res.loss, self._params))
+        M = X0.shape[0]
+        if M % self._n_dp:
+            raise ValueError(f"batch size M={M} must be divisible by the dp mesh axis size "
+                             f"{self._n_dp}")
+        m = M // self._n_dp
+        rows = (self._dp_index * m, m)
+        weights = None
+        if self.config.path_weight_fn is not None:
+            weights = torch.as_tensor(self.config.path_weight_fn(X0)).narrow(0, *rows)
+        local_noise = None if noise is None else (
+            lambda shape: noise((M,) + tuple(shape[1:])).narrow(0, *rows))
+        res = self.loss_fn(self.net, ts.narrow(1, *rows), dWs.narrow(1, *rows),
+                           X0.narrow(0, *rows), paths=paths, target_params=target,
+                           noise=local_noise, weights=weights)
+        grads = torch.autograd.grad(res.loss, self._params)
+        first = self._dp_index == 0
+        parts = [g.reshape(-1) for g in grads] + [
+            res.loss.detach().reshape(1),
+            (res.Y0.detach() if first else torch.zeros_like(res.Y0)).reshape(1)]
+        if paths:
+            for t in (res.X, res.Y):
+                full = t.new_zeros((M,) + t.shape[1:])
+                full.narrow(0, *rows).copy_(t.detach())
+                parts.append(full.reshape(-1))
+        sizes = [x.numel() for x in parts]
+        n = sum(sizes)
+        if n not in self._flat:
+            self._flat[n] = torch.empty(n, dtype=self.dtype, device=self.device)
+        flat = torch.cat(parts, out=self._flat[n])
+        all_reduce(flat, self._dp_group)
+        out = flat.split(sizes)
+        grads = [v.view_as(g) for v, g in zip(out, grads)]
+        # the buffer is reused by the next call: what outlives this iteration is copied
+        loss, y0 = out[len(grads)][0].clone(), out[len(grads) + 1][0].clone()
+        X = Y = None
+        if paths:
+            X, Y = (v.view((M,) + t.shape[1:]).clone() for v, t in zip(out[-2:], (res.X, res.Y)))
+        return res._replace(loss=loss, Y0=y0, X=X, Y=Y), grads
+
     def _update(self, ts: Tensor, dWs: Tensor, X0: Tensor, paths: bool = False) -> RolloutResult:
         """One optimizer step on the batch, in place: parameters, optimizer
         state and EMA shadow. Returns the rollout (detached loss and Y0)."""
@@ -516,9 +621,7 @@ class Trainer:
         target = self._ema if self._local_ema else None
         lbfgs = isinstance(self._tx, LBFGS)
         noise = _NoiseTape(self._noise) if lbfgs else self._noise
-        res: RolloutResult = self.loss_fn(self.net, ts, dWs, X0, paths=paths,
-                                          target_params=target, noise=noise)
-        grads = torch.autograd.grad(res.loss, params)
+        res, grads = self._loss_and_grads(ts, dWs, X0, paths, target, noise)
         with torch.no_grad():
             if lbfgs:
                 updates, state = self._tx.update(
@@ -555,9 +658,9 @@ class Trainer:
                 for p, q in zip(params, trial):
                     p.copy_(q)
             with torch.enable_grad():
-                loss = self.loss_fn(self.net, ts, dWs, X0, paths=False, target_params=target,
-                                    noise=None if noise is None else noise.rewind()).loss
-                grads = torch.autograd.grad(loss, params)
+                res, grads = self._loss_and_grads(
+                    ts, dWs, X0, False, target, None if noise is None else noise.rewind())
+                loss = res.loss
             with torch.no_grad():
                 for p, q in zip(params, current):
                     p.copy_(q)
@@ -626,7 +729,7 @@ class Trainer:
         chunk.idx.zero_()
         if self.track_best:
             chunk.best_loss.fill_(float("inf"))
-        if self.device.type != "cuda" or isinstance(self._tx, LBFGS):
+        if self.device.type != "cuda" or isinstance(self._tx, LBFGS) or not self._capturable:
             for _ in range(k):
                 self._iteration(chunk)
             return
@@ -705,13 +808,13 @@ class Trainer:
                         min_state = (out[2].numpy(), out[3].numpy())
                 else:
                     min_loss = min(min_loss, float(losses.min()))
-                if self.metrics_file is not None:
+                if self.metrics_file is not None and self._is_main:
                     self._write_metrics(
                         it=it, loss=float(losses[-1]), mean_loss=float(losses.mean()),
                         y0=y0_last, lr=lr_logged, N=b_N, optimizer=optimizer_type,
                         elapsed_s=time.time() - start,
                     )
-                if verbose:
+                if verbose and self._is_main:
                     now = time.time()
                     print(
                         f"It: {it}, Loss: {losses[-1]:.3e}, Y0: {y0_last:.3f}, "
@@ -744,7 +847,7 @@ class Trainer:
                     self._restore(snap)
                     self.generator.manual_seed(seed)
                     self.collapse_restarts.append(b_start + done)
-                    if verbose:
+                    if verbose and self._is_main:
                         print(
                             f"It: {b_start + done}, collapse detected (Y0 pinned) — rolled "
                             f"back, restart {len(self.collapse_restarts)}/"
@@ -855,6 +958,8 @@ class Trainer:
         """:meth:`polish`'s LBFGS steps and bookkeeping on a given batch (and,
         for a stochastic net, one frozen noise tape; None: a fresh one from
         the trainer's generator)."""
+        if self._tp:
+            raise ValueError("LBFGS does not run on a tensor-parallel mesh")
         params = self._params
         if from_ema:
             with torch.no_grad():
@@ -867,10 +972,8 @@ class Trainer:
         with full_f32_matmul():
             for _ in range(n_iter):
                 with torch.enable_grad():
-                    loss = self.loss_fn(self.net, ts, dWs, X0, paths=False,
-                                        noise=noise.rewind()).loss
-                    grads = torch.autograd.grad(loss, params)
-                loss = loss.detach()
+                    res, grads = self._loss_and_grads(ts, dWs, X0, noise=noise.rewind())
+                loss = res.loss.detach()
                 with torch.no_grad():
                     updates, state = tx.update(
                         grads, state, params, value=loss,
@@ -891,32 +994,44 @@ class Trainer:
     def save_model(self, file_name: str) -> None:
         """Persist params, optimizer state with its signature, iteration
         counter, history, the generator's state and the EMA shadow. A
-        schedule's optimizer state is not saved: the schedule cannot be."""
+        schedule's optimizer state is not saved: the schedule cannot be.
+        On a mesh every rank calls it: the tensors are gathered whole, rank 0
+        writes the file and the others wait for it."""
         saved_sig = None if self._opt_sig is None or callable(self._opt_sig[1]) else self._opt_sig
-        save_checkpoint(
-            file_name,
-            params=self.net.state_dict(),
-            opt_state=self._opt_state if saved_sig is not None else None,
-            opt_sig=None if saved_sig is None else list(saved_sig),
-            next_it=self._next_it,
-            training_loss=self.training_loss,
-            iteration=self.iteration,
-            y0_log=self.y0_log,
-            generator=self.generator.get_state(),
-            ema=self._ema.state_dict() if self._ema is not None else None,
-        )
+        full = model_sharding.full_state_dict
+        opt_state = None if saved_sig is None else {
+            k: model_sharding.gather_full(v, self._shard_dims, self.net)
+            if isinstance(v, list) else v for k, v in self._opt_state.items()}
+        params, ema = full(self.net), None if self._ema is None else full(self._ema)
+        if self._is_main:
+            save_checkpoint(
+                file_name,
+                params=params,
+                opt_state=opt_state,
+                opt_sig=None if saved_sig is None else list(saved_sig),
+                next_it=self._next_it,
+                training_loss=self.training_loss,
+                iteration=self.iteration,
+                y0_log=self.y0_log,
+                generator=self.generator.get_state(),
+                ema=ema,
+            )
+        if self.mesh is not None:
+            dist.barrier()
 
     def load_model(self, file_name: str) -> None:
         """Restore a :meth:`save_model` checkpoint into this trainer's
         tensors, so that its next chunk is the one the saved run would have
         run next."""
         state = restore_checkpoint(file_name)
-        self.net.load_state_dict(state["params"])  # copies in place
+        self._load_full(state["params"])  # copies in place
         saved_sig = state.get("opt_sig")
         if saved_sig is not None and state["opt_state"] is not None:
             self._select_optimizer(saved_sig[0], float(saved_sig[1]))
+            opt_state = {k: model_sharding.slice_full(v, self._shard_dims, self.net)
+                         if isinstance(v, list) else v for k, v in state["opt_state"].items()}
             with torch.no_grad():
-                _assign(self._opt_state, state["opt_state"])
+                _assign(self._opt_state, opt_state)
         self.training_loss = list(state["training_loss"])
         self.iteration = list(state["iteration"])
         self.y0_log = list(state.get("y0_log", []))
@@ -925,7 +1040,7 @@ class Trainer:
             self.generator.set_state(state["generator"])
         if state.get("ema") is not None and self.ema_decay is not None:
             self._set_ema(self.net)
-            self._ema.load_state_dict(state["ema"])
+            self._load_full(state["ema"], self._ema)
 
     # ---------------------------------------------------------------- predict
     def _as_tensor(self, a) -> Tensor:

@@ -4,8 +4,8 @@ grades at the CLI's default seed (42), on one NVIDIA GPU:
 
     python3 scripts/cli_seeds.py
 
-- ``chip_smoke.CLI_BARRIER``: the barrier call at N = 10, M = 4096, 6000
-  iterations at 1e-3 then 4000 at 1e-4 (the objective resolved to local),
+- ``chip_smoke.CLI_BARRIER``: the barrier call at N = 10, M = 4096, 2000
+  iterations at 1e-3 then 1000 at 1e-4 (the objective resolved to local),
   graded by its ``learned_y0`` (and, beside it, its ``ema_y0``) against
   the discrete oracle;
 - ``chip_smoke.CLI_CALL1D``: the 1-D call on [2, 32 x 4, 1], M = 256,

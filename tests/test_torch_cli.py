@@ -3,8 +3,8 @@ actions (dest, default, choices, nargs), ``make_problem`` for all 13
 problems, ``oracle_y0`` (the deterministic oracles within 1e-6 relative,
 the Monte-Carlo ones within 4 combined SE), the end-to-end cases of
 ``tests/test_cli.py`` through ``main(..., device="cpu")`` (JAX's ``slow``
-marks kept), ``--mode SDEnet`` and ``--surface``, the summary's key set, the option not
-ported yet (``--dp``), and the ``.npz`` plots written without matplotlib."""
+marks kept), ``--mode SDEnet`` and ``--surface``, the summary's key set, ``--dp 2`` on two
+local gloo ranks, and the ``.npz`` plots written without matplotlib."""
 
 from __future__ import annotations
 
@@ -352,9 +352,25 @@ def test_cli_surface(tmp_path, budget, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [(["--dp", "2"], "parallel")])
-def test_options_not_ported_yet_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(flag + ["--out", str(tmp_path)], device="cpu")
+def test_options_not_ported_yet_raise(tmp_path, flag, item, capfd):
+    """``--dp`` was the last option not ported; it now starts two local
+    ranks (gloo on the CPU) that train in lockstep, and rank 0 alone writes
+    one summary, the plots and the checkpoint."""
+    ck = tmp_path / "m.pt"
+    rc = main(["--problem", "bsb", "--D", "4", *TINY[:-3], "--log-every", "2", *flag,
+               "--checkpoint", str(ck), "--out", str(tmp_path)], device="cpu")
+    assert rc == 0
+    out = capfd.readouterr().out
+    summaries = [ln for ln in out.splitlines() if ln.startswith('{"problem"')]
+    assert len(summaries) == 1
+    assert json.loads(summaries[0]) == json.loads((tmp_path / "summary.json").read_text())
+    assert set(json.loads(summaries[0])) == set(_summary_keys())
+    assert ck.exists() and any(f.suffix in (".png", ".npz") for f in tmp_path.iterdir())
+
+
+def _summary_keys():
+    return ["problem", "D", "M", "N", "mode", "activation", "optimizer", "learned_y0",
+            "ema_y0", "oracle_y0", "rel_error", "min_loss", "wall_time_s", "iters_per_sec"]
 
 
 def test_plots_are_npz_without_matplotlib(tmp_path, monkeypatch, capsys):

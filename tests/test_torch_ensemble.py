@@ -59,9 +59,23 @@ def test_ensemble_rejects_unknown_optimizer_and_meshes():
     with pytest.raises(ValueError, match="ensemble supports"):
         train_sensitivity_ensemble(BlackScholesBarenblatt(D=2), HPS, M=4, N=2,
                                    layers=[3, 8, 1], optimizer_type="LBFGS", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        train_ensemble(BlackScholesBarenblatt(D=2), 2, 2, M=4, N=2, mesh=object(),
+    # a mesh whose "dp" size does not divide the members is rejected before
+    # any collective (the sharded ensemble itself: tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="divisible"):
+        train_ensemble(BlackScholesBarenblatt(D=2), 3, 2, M=4, N=2, mesh=_DpMesh(2),
                        device="cpu")
+
+
+class _DpMesh:
+    """The face of a 1-D "dp" mesh of ``n`` ranks that the member split reads."""
+
+    mesh_dim_names = ("dp",)
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, dim):
+        return self.n
 
 
 def test_ensemble_member_k_is_the_solo_trainer_of_seed_plus_k():
@@ -154,3 +168,40 @@ def test_sensitivity_executor_falls_back_to_sequential_runs(monkeypatch):
           "fine_tuning_n_iter": 5000}
     assert np.isfinite(SensitivityExecutor(CallOption1D(D=1), M=4, N=3, iter_scale=2e-4,
                                            device="cpu").evaluate_model(hp))
+
+
+@pytest.fixture(scope="module")
+def sharded_ensemble(tmp_path_factory):
+    from torch_parallel_workers import run_job
+
+    return run_job("ensemble", 4, tmp_path_factory.mktemp("ensemble"))
+
+
+def test_ensemble_mesh_sharded_matches_unsharded(sharded_ensemble):
+    """``tests/test_ensemble.py``'s case: 8 members over a 4-rank "dp" mesh
+    (two a rank) against the unsharded ensemble at its rtol 1e-4; every
+    rank gathers the same (K, ...) results."""
+    from torch_parallel_workers import ENSEMBLE
+
+    plain = train_ensemble(BlackScholesBarenblatt(D=4), **ENSEMBLE)
+    ours = sharded_ensemble[0]
+    np.testing.assert_allclose(ours["losses"], plain.losses, rtol=1e-4)
+    np.testing.assert_allclose(ours["y0s"], plain.y0s, rtol=1e-4)
+    for name, p in plain.params.items():
+        np.testing.assert_allclose(ours["params"][name].numpy(), p.numpy(), rtol=1e-4,
+                                   atol=1e-6)
+    for other in sharded_ensemble[1:]:
+        assert np.array_equal(other["losses"], ours["losses"])
+        assert all(torch.equal(v, other["params"][k]) for k, v in ours["params"].items())
+
+
+def test_ensemble_mesh_divisibility_error(sharded_ensemble):
+    assert "divisible" in sharded_ensemble[0]["indivisible"]
+
+
+def test_sensitivity_ensemble_over_a_mesh_matches_unsharded(sharded_ensemble):
+    from torch_parallel_workers import SENSITIVITY_HPS
+
+    plain = train_sensitivity_ensemble(BlackScholesBarenblatt(D=4), SENSITIVITY_HPS, M=8, N=4,
+                                       layers=[5, 16, 16, 1], device="cpu")
+    np.testing.assert_allclose(sharded_ensemble[0]["sensitivity"], plain, rtol=1e-4)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``dnnpde_tpu_torch``, not
-``chip_smoke.py`` and not the port's scripts ``scripts/time_tree.py``,
+``chip_smoke.py``, not the ranks' program of the parallel tests
+(``tests/torch_parallel_workers.py``) and not the port's scripts ``scripts/time_tree.py``,
 ``scripts/k4_anatomy.py``, ``scripts/anneal_20k.py``,
 ``scripts/stopping_rows.py``, ``scripts/path_rows.py``,
 ``scripts/cli_seeds.py``, ``scripts/surface_rows.py`` and
@@ -26,7 +27,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dnnpde_tpu")
 
 def _port_sources() -> list[Path]:
     files = sorted((ROOT / "dnnpde_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"] + [
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_workers.py"] + [
         ROOT / "scripts" / f"{s}.py"
         for s in ("time_tree", "k4_anatomy", "anneal_20k", "stopping_rows", "path_rows",
                   "cli_seeds", "surface_rows", "replica_rows")]
@@ -65,7 +66,8 @@ def test_port_sources_found():
         "experiments/executors", "train/replicas", "train/ensemble", "train/extrapolation",
         "evals/sensitivity", "evals/correlation_analysis", "numerics/moments",
         "numerics/fft_pricer", "numerics/variance_gamma", "numerics/calibration",
-        "sim/mlmc")} <= names
+        "sim/mlmc", "parallel/__init__", "parallel/distributed", "parallel/mesh",
+        "parallel/model_sharding", "parallel/shard_map_step")} <= names
     assert {"scripts/stopping_rows.py", "scripts/path_rows.py",
             "scripts/surface_rows.py", "scripts/replica_rows.py"} <= names
 
@@ -406,3 +408,24 @@ def test_replica_slice_entry_points_without_cuda_raise(no_cuda):
     assert mlmc_gbm_price(gen, [1.0], 1.0, 1.0, 0.05, 0.2)[0].device.type == "cpu"
     assert mlmc_minibatch(gen, 2, 4, 1, 1.0)[0][1].device.type == "cpu"
     assert moment_matched_basket_call(np.ones(2), 1.0, 1.0, 0.05, 0.2) > 0
+
+
+def test_parallel_slice_entry_points_without_cuda_raise(no_cuda):
+    """The process group, the meshes and the sharded trainer resolve
+    ``device=None`` to the card and raise without one; naming the CPU is
+    the only way onto it."""
+    from dnnpde_tpu_torch.cli import main
+    from dnnpde_tpu_torch.parallel import init_distributed, make_mesh, make_mesh_2d
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import Trainer
+
+    calls = [
+        lambda: init_distributed("127.0.0.1:1", 1, 0),
+        lambda: make_mesh(1),
+        lambda: make_mesh_2d(1, 1),
+        lambda: Trainer(BlackScholesBarenblatt(D=2), M=4, N=2, layers=[3, 8, 1], mesh=object()),
+        lambda: main(["--dp", "2"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -135,8 +135,10 @@ def test_auto_remat_rule():
 
 
 def test_device_none_and_later_features_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(mesh=object())
+    # meshes are ported (tests/test_torch_parallel.py); one whose "dp" size
+    # does not divide M is rejected before any collective, as in JAX
+    with pytest.raises(ValueError, match="divisible"):
+        _trainer(mesh=_DpMesh(M + 1))
     # sampled X0, the local objectives, path weights and Z-matching are
     # ported (test_torch_stopping_trainer.py)
     for kw in ({"x0_sampler": lambda g, m: None, "objective": "local"}, {"objective": "local"},
@@ -150,3 +152,15 @@ def test_device_none_and_later_features_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(BlackScholesBarenblatt(D=D), M=M, N=N, layers=LAYERS)
+
+
+class _DpMesh:
+    """The face of a 1-D "dp" mesh of ``n`` ranks that the batch split reads."""
+
+    mesh_dim_names = ("dp",)
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, dim):
+        return self.n
