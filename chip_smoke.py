@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's training, serving, basket, harness, stopping,
-CLI, SDENet, surface, executor, replica, ensemble, oracle and parallel paths
-on one NVIDIA GPU and check its kernels.
+CLI, SDENet, surface, executor, replica, ensemble, oracle, parallel and last
+modules' paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -95,7 +95,7 @@ built for CUDA. It
    within 4 combined SE of the plain one with a variance reduction;
 
 10. drives the CLI path, ``python3 -m dnnpde_tpu_torch`` in a child
-   process per run (the child zeroes the four launch counters, runs the
+   process per run, the five at once (the child zeroes the four launch counters, runs the
    module as ``python -m`` does and prints the counts it left): BSB-100 at
    the CLI's defaults (M = 100, N = 50, FC-Sine [101, 256 x 4, 1], 2000
    iterations at 1e-3 then 500 at 1e-5) with --checkpoint and --export
@@ -169,14 +169,40 @@ built for CUDA. It
    within rtol 1e-4; P3, ``python3 -m dnnpde_tpu_torch --dp 2`` on BSB-100
    at the CLI's widths for 60 iterations (rc 0, one summary with JAX's
    keys, the logged loss falling);
+18. drives the last modules' path: BSB-100 through the reference's
+   composition API (``compat.NeuralNetworkTraining``, 200 captured
+   iterations; ``LossFunction.compute`` on the ``EulerMaruyamaScheme``'s
+   paths within 1e-5 of the Trainer's loss on the same weights and
+   increments); the training path's trained flagship exported as the
+   self-contained ``torch.export`` artifact, loaded, and its (u, Z) at
+   B = 1, 100, 4096 within 1e-6 of max|.| of the trainer's f32
+   ``evaluate_u``, ``u_and_grad_device`` timed; the flagship at M = 2048
+   (where JAX's auto-remat rule turns remat on) under remat=False, full
+   remat, "dots_saveable" and "everything_saveable": the loss and gradients
+   on one batch against remat=False, 2 captured iterations (the warm-up
+   and the capture's replay) against 2 eager steps bit for bit, 8 more
+   replays timed, the peak device memory; 20 captured
+   iterations of the K1 + K2 trainer under ``profile_trace``, K1's and K2's
+   kernels counted by name in the trace file it wrote, all of them and the
+   marker kernel launched after them; ``detect_anomalies``
+   raising ``FloatingPointError`` on a NaN made on the card in a forward and
+   in a backward pass, a Trainer inside it running eagerly; the trained
+   trainer's state through ``save_checkpoint_orbax`` and back bit for bit;
+   BSB-100 rebuilt with ``as_callable_problem`` trained 20 captured
+   iterations, equal to the built-in problem's bit for bit; and the kernel
+   cache: a child process started after the build compiles the four kernels
+   into a fresh ``DNNPDE_COMPILATION_CACHE`` directory (its nvcc runs
+   overlap the kernel checks and the start of the training path), and a
+   second one, started as this path begins, finds them there and runs nvcc
+   0 times;
 
-   on each of the thirteen paths all four launch counters are set to 0 just
+   on each of the fourteen paths all four launch counters are set to 0 just
    before it runs and read just after; the kernels line reports each
-   kernel's launches path by path (K1's and K2's on the training, basket
-   and stopping paths from the run's trace, the others from the wrappers;
-   none is on the harness, CLI, SDENet, surface, executor, replica,
-   ensemble, oracle and parallel paths) beside the wrapper calls;
-18. times the replica program's replica-iterations/s beside one solo
+   kernel's launches path by path (K1's and K2's on the training, basket,
+   stopping and last modules' paths from the run's trace, the others from
+   the wrappers; none is on the harness, CLI, SDENet, surface, executor,
+   replica, ensemble, oracle and parallel paths) beside the wrapper calls;
+19. times the replica program's replica-iterations/s beside one solo
    trainer's captured it/s on its configuration, times training
    (iterations/s at M = 100, 512, 2048 on both paths, captured chunks and
    eager ``Trainer.step`` loops, and the basket run),
@@ -1814,19 +1840,34 @@ _CLI_CHILD = (
 )
 
 
+def start_cli(argv, out_dir: str):
+    """Start ``python3 -m dnnpde_tpu_torch argv --out out_dir`` in a child
+    process on the card; :func:`finish_cli` waits for it."""
+    import atexit
+
+    cmd = [sys.executable, "-c", _CLI_CHILD, *argv, "--out", out_dir]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+    return proc, time.perf_counter()
+
+
 def run_cli(argv, out_dir: str) -> dict:
     """``python3 -m dnnpde_tpu_torch argv --out out_dir`` in a child process
     on the card: its exit code, wall seconds, summary, stdout, plot files,
     the kernel launches it made and the objective its Trainer was given."""
+    return finish_cli(argv, out_dir, start_cli(argv, out_dir))
+
+
+def finish_cli(argv, out_dir: str, started) -> dict:
+    """What :func:`run_cli` returns, of a child :func:`start_cli` started."""
     from pathlib import Path
 
-    cmd = [sys.executable, "-c", _CLI_CHILD, *argv, "--out", out_dir]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
     seconds = time.perf_counter() - t0
     _require(proc.returncode == 0, f"CLI {' '.join(argv)}: exit code {proc.returncode}\n"
-             f"{proc.stderr[-3000:]}")
-    lines = proc.stdout.strip().splitlines()
+             f"{stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
     counts = json.loads(next(ln for ln in lines if ln.startswith("CLI_COUNTS "))[11:])
     trainer = json.loads(next(ln for ln in lines if ln.startswith("CLI_TRAINER "))[12:])
     summary = json.loads((Path(out_dir) / "summary.json").read_text())
@@ -1848,7 +1889,9 @@ def drive_cli(device) -> dict:
     """The CLI path: BSB-100 at the CLI's defaults with --checkpoint and
     --export; ``CLI_BARRIER`` (with --cv-price 262144); the Asian and
     lookback calls at --iters 200 50; ``CLI_CALL1D`` (a 400-step LBFGS
-    polish, --cv-price) with --export. Beside them, in this process, the
+    polish, --cv-price) with --export; the five child processes run at once
+    (their seeded results are those of one at a time, their seconds those
+    of sharing the host and the card). After them, in this process, the
     discrete oracle again (its SE), the QMC oracle and the closed-form
     brackets, the exported BSB solution against the checkpoint's net, and
     the Y0 the exported 1-D call serves. Returns the runs,
@@ -1875,8 +1918,10 @@ def drive_cli(device) -> dict:
                               "--quiet"],
             "call1d_polish": CLI_CALL1D + ["--export", art1d],
         }
+        # the runs share the card at once: each is mostly its host's work
+        started = {name: start_cli(argv, f"{tmp}/{name}") for name, argv in runs.items()}
         for name, argv in runs.items():
-            out["calls"][name] = run = run_cli(argv, f"{tmp}/{name}")
+            out["calls"][name] = run = finish_cli(argv, f"{tmp}/{name}", started[name])
             print(f"CLI {name}: rc {run['rc']}, {run['seconds']:.1f} s, plots "
                   f"{run['plots']}, launches {json.dumps(run['counts'])}; summary "
                   + json.dumps(run["summary"]))
@@ -2920,12 +2965,15 @@ def _final(tr, steps: int = 2) -> tuple[float, float]:
     return float(res.graph[1][-1]), float(res.y0_history[-1])
 
 
-def _flagship_trainer(device, mesh=None):
+def _flagship_trainer(device, mesh=None, M: int = TRAIN_M, seed: int = 1, config=None,
+                      prob=None):
+    """BSB-100 (or ``prob``) at full width on the f32 autograd net_u (or
+    ``config``)."""
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.train import Trainer
 
-    return Trainer(BlackScholesBarenblatt(D=D), M=TRAIN_M, N=N_STEPS, layers=LAYERS, seed=1,
-                   mesh=mesh, device=device)
+    return Trainer(prob or BlackScholesBarenblatt(D=D), M=M, N=N_STEPS, layers=LAYERS,
+                   solver_config=config, seed=seed, mesh=mesh, device=device)
 
 
 def _state(tr) -> dict:
@@ -3241,6 +3289,387 @@ def check_parallel(run) -> None:
     _require(not any(run["counts"].values()), f"parallel path launched kernels: {run['counts']}")
 
 
+# ---- the last modules: compat, the artifact, remat policies, diagnostics,
+# orbax-style checkpoints, the kernel cache, CallableProblem ----------------
+
+LAST_COMPAT_ITERS = 200
+LAST_COMPAT_TOL = 1e-5  # LossFunction.compute vs the Trainer's loss, relative
+LAST_SERVE_TOL = 1e-6  # the artifact's (u, Z) vs the f32 evaluate_u, of max|.|
+LAST_REMAT_M = 2048  # JAX's auto-remat rule turns remat on here (~1.26 GB of activations)
+LAST_REMAT_EAGER = 2  # the warm-up and the capture's replay, bit for bit against eager steps
+LAST_REMAT_ITERS = 8  # replays timed after them: 10 captured iterations a setting
+LAST_REMAT_TOL = 1e-6  # loss and gradients vs remat=False, of max|.|
+LAST_REMAT = (("remat=False", False, None), ("full remat", True, None),
+              ("dots_saveable", True, "dots_saveable"),
+              ("everything_saveable", True, "everything_saveable"))
+LAST_TRACE_ITERS = 20
+LAST_CALLABLE_ITERS = 20
+CACHE_CHILD = (
+    "import json, subprocess, sys\n"
+    "from dnnpde_tpu_torch.ops import _build\n"
+    "from dnnpde_tpu_torch.runtime import maybe_enable_compilation_cache_from_env\n"
+    "runs = []\n"
+    "popen = subprocess.Popen\n"
+    "def counted(cmd, *args, **kwargs):\n"
+    "    runs.append(cmd[0])\n"
+    "    return popen(cmd, *args, **kwargs)\n"
+    "_build.subprocess.Popen = counted\n"
+    "where = maybe_enable_compilation_cache_from_env()\n"
+    "_build.build_all()\n"
+    "names = sorted(p.stem for p in _build.CSRC.glob('*.cu'))\n"
+    "for n in names:\n"
+    "    _build.load(n)\n"
+    "print('CACHE ' + json.dumps({'dir': where, 'nvcc_runs': len(runs), 'loaded': names,\n"
+    "      'files': sorted(p.name for p in _build.BUILD_DIR.glob('*.so'))}))\n"
+)
+
+
+def _cache_child(where: str):
+    """A child process that builds (or finds) every kernel in the kernel
+    cache ``where`` (``DNNPDE_COMPILATION_CACHE``) and counts its nvcc runs."""
+    import atexit
+
+    env = dict(os.environ, DNNPDE_COMPILATION_CACHE=where)
+    proc = subprocess.Popen([sys.executable, "-c", CACHE_CHILD], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(proc.kill)
+    return proc
+
+
+def start_cache_build():
+    """Build every kernel into a fresh kernel-cache directory in a child
+    process, in the background while earlier phases run. Returns (process,
+    directory)."""
+    where = tempfile.mkdtemp(prefix="dnnpde_kernel_cache_")
+    return _cache_child(where), where
+
+
+def _cache_report(proc) -> dict:
+    out, _ = proc.communicate(timeout=600)
+    _require(proc.returncode == 0, f"the kernel-cache child failed:\n{out[-3000:]}")
+    return json.loads(next(ln for ln in out.splitlines() if ln.startswith("CACHE "))[6:])
+
+
+def _last_compat(device) -> dict:
+    """BSB-100 through the reference's composition API: 200 captured
+    iterations, then ``LossFunction.compute`` on the scheme's paths against
+    the trainer's own loss on the same weights and increments."""
+    from dnnpde_tpu_torch.compat import EulerMaruyamaScheme, LossFunction, NeuralNetworkTraining
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.sim import paths_to_increments
+
+    prob = BlackScholesBarenblatt(D=D)
+    marks = [time.perf_counter()]
+    sim = EulerMaruyamaScheme(prob.x0.numpy()[None], prob.T, TRAIN_M, N_STEPS, D, seed=3,
+                              device=device)
+    nnt = NeuralNetworkTraining(prob, sim, layers=LAYERS, seed=1)
+    marks.append(time.perf_counter())
+    graph = nnt.train(LAST_COMPAT_ITERS, 1e-3)
+    marks.append(time.perf_counter())
+    tr = nnt.model
+    chunk = next(iter(tr._chunk_cache.values()))
+    t, W = sim.simulate()
+    loss, X, Y, y0 = LossFunction(prob, tr.net).compute(t, W, sim.Xi)
+    marks.append(time.perf_counter())
+    _, dW = paths_to_increments(t, W)
+    with torch.no_grad():
+        ref = tr.loss_fn(tr.net, t.transpose(0, 1), dW.transpose(0, 1),
+                         prob.x0.to(device).expand(TRAIN_M, D), paths=True)
+    marks.append(time.perf_counter())
+    seconds = dict(zip(("init", "train", "compute", "reference"), np.diff(marks).round(2).tolist()))
+    return {"graph": graph.tolist(), "seconds": seconds, "captured": chunk.graph is not None,
+            "loss": loss, "trainer_loss": float(ref.loss),
+            "loss_rel": abs(loss - float(ref.loss)) / abs(float(ref.loss)),
+            "y0_rel": abs(y0 - float(ref.Y0)) / abs(float(ref.Y0)),
+            "X_rel": _rel_max(X, ref.X.cpu().numpy()), "Y_rel": _rel_max(Y, ref.Y.cpu().numpy()),
+            "shapes": [list(X.shape), list(Y.shape)]}
+
+
+def _last_artifact(trainer, device) -> dict:
+    """The training phase's trained flagship through the artifact: export,
+    load, (u, Z) at each serving batch against the trainer's f32
+    ``evaluate_u``; the latency of ``u_and_grad_device``."""
+    from dnnpde_tpu_torch.serve import export_trainer, load_solution
+
+    t0 = time.perf_counter()
+    blob = export_trainer(trainer)
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/bsb100.pt2"
+        with open(path, "wb") as f:
+            f.write(blob)
+        t0 = time.perf_counter()
+        sol = load_solution(path, device=device)
+        load_s = time.perf_counter() - t0
+    errs, ms = {}, {}
+    for B in SERVE_BATCHES:
+        t, X = requests(B, device, seed=700 + B)
+        u, Z = sol.u_and_grad(t, X)
+        u_ref, Z_ref = trainer.evaluate_u(t, X)
+        errs[B] = {"u": _rel_max(u, u_ref), "Z": _rel_max(Z, Z_ref), "shape_ok":
+                   u.shape == (B, 1) and Z.shape == (B, D) and bool(np.isfinite(Z).all())}
+        ms[f"u_and_grad_device_B{B}_ms"] = host_ms(lambda: sol.u_and_grad_device(t, X), 50)
+    return {"bytes": len(blob), "export_s": export_s, "load_s": load_s, "errors": errs,
+            "latency": ms, "record": sol.record}
+
+
+def _grads_on(trainer, batch) -> tuple[torch.Tensor, list]:
+    res, grads = trainer._loss_and_grads(*batch)
+    return res.loss.detach(), [g.detach() for g in grads]
+
+
+def _last_remat(device) -> dict:
+    """The flagship at M = 2048 under each remat setting: loss and gradients
+    on one batch against remat=False; LAST_REMAT_EAGER captured iterations
+    against as many eager steps, bit for bit; the captured rate over
+    LAST_REMAT_ITERS replays; the peak device memory of the captured run
+    above what the process held before it."""
+    from dnnpde_tpu_torch.solver import SolverConfig
+    from dnnpde_tpu_torch.train import device_memory_stats
+
+    batch = flagship_batch(LAST_REMAT_M, device, seed=11)
+    out, ref = {}, None
+    for label, remat, policy in LAST_REMAT:
+        config = SolverConfig(remat=remat, remat_policy=policy)
+        torch.cuda.empty_cache()
+        marks = [time.perf_counter()]
+        tr = _flagship_trainer(device, M=LAST_REMAT_M, config=config, seed=2)
+        loss, grads = _grads_on(tr, batch)
+        if ref is None:
+            ref = (loss, grads)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        held = device_memory_stats(device)["bytes_in_use"]  # what earlier phases still hold
+        marks.append(time.perf_counter())
+        tr.train(LAST_REMAT_EAGER, 1e-3, log_every=LAST_REMAT_EAGER, verbose=False)
+        chunk = next(iter(tr._chunk_cache.values()))
+        logged = chunk.losses[:LAST_REMAT_EAGER].clone()
+        state = torch.utils._pytree.tree_map_only(torch.Tensor, torch.clone, _state(tr))
+        torch.cuda.synchronize(device)
+        marks.append(time.perf_counter())
+        tr.train(LAST_REMAT_ITERS, 1e-3, log_every=LAST_REMAT_EAGER, verbose=False)
+        torch.cuda.synchronize(device)
+        marks.append(time.perf_counter())
+        rate = LAST_REMAT_ITERS / (marks[-1] - marks[-2])
+        peak = device_memory_stats(device)["peak_bytes_in_use"] - held
+        eager = _flagship_trainer(device, M=LAST_REMAT_M, config=config, seed=2)
+        steps = [eager.step(*eager._batch(), "Adam", 1e-3)[0] for _ in range(LAST_REMAT_EAGER)]
+        torch.cuda.synchronize(device)
+        marks.append(time.perf_counter())
+        same = _same(state, _state(eager))
+        same["losses"] = torch.equal(logged, torch.stack(steps))
+        out[label] = {
+            "loss_rel": float((loss - ref[0]).abs() / ref[0].abs()),
+            "grad_rel": max(float((g - r).abs().max() / r.abs().max())
+                            for g, r in zip(grads, ref[1])),
+            "loss_bitwise": bool(torch.equal(loss, ref[0])),
+            "grads_bitwise": all(torch.equal(g, r) for g, r in zip(grads, ref[1])),
+            "captured": chunk.graph is not None, "captured_vs_eager": same,
+            "it_per_s": rate, "peak_bytes_over_held": peak, "seconds": dict(zip(
+                ("gradient", "capture", "replays", "eager"), np.diff(marks).round(2).tolist()))}
+        del tr, eager, chunk
+    return out
+
+
+def _last_trace(device) -> dict:
+    """20 captured iterations of the K1 + K2 trainer under ``profile_trace``;
+    K1's and K2's kernels counted by name in the trace file it wrote."""
+    import glob
+
+    from dnnpde_tpu_torch.train import profile_trace
+
+    trainer = _kernel_trainer(device, seed=6)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            trainer.train(LAST_TRACE_ITERS, 1e-3, log_every=LAST_TRACE_ITERS, verbose=False)
+            torch.cuda.synchronize(device)
+            # the marker kernel, after every kernel of the run: a trace that
+            # holds it holds the whole run (profile_trace waits for it)
+            torch.cuda._sleep(1000)
+        files = glob.glob(f"{tmp}/*.pt.trace.json")
+        _require(len(files) == 1, f"profile_trace wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    runs = dict.fromkeys(K1_K2_KERNELS, 0)
+    last, spins = 0.0, []  # the run's last K1/K2 kernel; the spin kernels (lead-in, marker)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        m = re.search(r"mlp_u_z_\w+", e.get("name", ""))
+        if m and m.group(0) in runs:
+            runs[m.group(0)] += 1
+            last = max(last, float(e["ts"]))
+        if "spin_kernel" in e.get("name", ""):
+            spins.append(float(e["ts"]))
+    markers = sum(ts > last for ts in spins)
+    return {"runs": runs, "markers": markers, "trace_bytes": size, "events": len(events)}
+
+
+def _last_anomalies(device) -> dict:
+    """NaNs made on the card in a forward and in a backward pass inside
+    ``detect_anomalies``; a Trainer inside it runs eagerly."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import Trainer, detect_anomalies
+
+    out = {}
+    try:
+        with detect_anomalies():
+            torch.log(torch.full((4,), -1.0, device=device))
+        out["forward"] = "no error"
+    except FloatingPointError as e:
+        out["forward"] = f"FloatingPointError: {e}"
+    x = torch.zeros(4, device=device, requires_grad=True)
+    y = torch.sqrt(x) * 0.0  # finite forward; the backward's 0 / (2 sqrt(0)) is NaN
+    try:
+        with detect_anomalies(nans=True, infs=False):
+            y.sum().backward()
+        out["backward"] = "no error"
+    except FloatingPointError as e:
+        out["backward"] = f"FloatingPointError: {e}"
+    tr = Trainer(BlackScholesBarenblatt(D=D), M=TRAIN_M, N=5, layers=LAYERS, seed=3,
+                 device=device)  # every op of the block waits for its check: a short rollout
+    with detect_anomalies():
+        tr.train(2, 1e-3, log_every=2, verbose=False)
+    out["trainer_eager"] = all(c.graph is None for c in tr._chunk_cache.values())
+    out["trainer_losses_finite"] = bool(np.isfinite(tr.training_loss).all())
+    return out
+
+
+def _last_checkpoint(trainer) -> dict:
+    """The trained trainer's state through ``save_checkpoint_orbax``:
+    restored with and without a template, bit for bit."""
+    from dnnpde_tpu_torch.train import restore_checkpoint_orbax, save_checkpoint_orbax
+
+    s = _state(trainer)
+    state = {"params": dict(trainer.net.named_parameters()),
+             "mu": {str(i): t for i, t in enumerate(trainer._opt_state["mu"])},
+             "nu": {str(i): t for i, t in enumerate(trainer._opt_state["nu"])},
+             "count": trainer._opt_state["count"], "generator": s["generator"]}
+    state = torch.utils._pytree.tree_map_only(torch.Tensor, lambda t: t.detach(), state)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint_orbax(f"{tmp}/ckpt", state)
+        bare = restore_checkpoint_orbax(f"{tmp}/ckpt")
+        templated = restore_checkpoint_orbax(f"{tmp}/ckpt", state)
+        seconds = time.perf_counter() - t0
+
+    def equal(a, b):
+        fa, fb = torch.utils._pytree.tree_flatten(a), torch.utils._pytree.tree_flatten(b)
+        return fa[1] == fb[1] and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(fa[0], fb[0]))
+
+    return {"without_template": equal(bare, state), "with_template": equal(templated, state),
+            "template_device": str(templated["mu"]["0"].device), "seconds": seconds}
+
+
+def _last_callable(device) -> dict:
+    """BSB-100 rebuilt from plain functions (``as_callable_problem``): 20
+    captured iterations, against the built-in problem's on the same seed."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, as_callable_problem
+
+    bsb = BlackScholesBarenblatt(D=D)
+    prob = as_callable_problem(
+        dim=D, T=bsb.T, x0=bsb.x0, mu=lambda t, X, Y, Z: torch.zeros_like(X),
+        sigma=lambda t, X, Y: bsb.sigma_bar * X,
+        phi=lambda t, X, Y, Z: bsb.r * (Y - torch.sum(X * Z, dim=-1, keepdim=True)),
+        g=lambda X: torch.sum(X**2, dim=-1, keepdim=True), name="bsb-callable")
+    out = {}
+    for name, p in (("callable", prob), ("builtin", bsb)):
+        tr = _flagship_trainer(device, seed=4, prob=p)
+        res = tr.train(LAST_CALLABLE_ITERS, 1e-3, log_every=LAST_CALLABLE_ITERS // 2,
+                       verbose=False)
+        out[name] = {"losses": res.graph[1].tolist(), "y0": res.y0_history.tolist(),
+                     "captured": all(c.graph is not None for c in tr._chunk_cache.values())}
+    return out
+
+
+def drive_last_modules(trainer, device, cache) -> dict:
+    """The last modules' path (see the module docstring); the launch counters
+    are zeroed before and read after it."""
+    import shutil
+
+    zero_counts()
+    t0 = time.perf_counter()
+    proc, where = cache
+    first = _cache_report(proc)
+    second = _cache_child(where)  # finds the kernels while this process runs the rest
+    out, seconds = {"cache_first": first}, {}
+    steps = {"compat": lambda: _last_compat(device),
+             "artifact": lambda: _last_artifact(trainer, device),
+             "remat": lambda: _last_remat(device), "trace": lambda: _last_trace(device),
+             "anomalies": lambda: _last_anomalies(device),
+             "checkpoint": lambda: _last_checkpoint(trainer),
+             "callable": lambda: _last_callable(device)}
+    for key, step in steps.items():
+        t1 = time.perf_counter()
+        out[key] = step()
+        seconds[key] = round(time.perf_counter() - t1, 2)
+    out["cache_second"] = _cache_report(second)
+    shutil.rmtree(where, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print("last modules, seconds by step: " + json.dumps(seconds))
+    out["counts"] = read_counts()
+    out["runs"] = out["trace"]["runs"]
+    for key in ("compat", "artifact", "remat", "trace", "anomalies", "checkpoint", "callable",
+                "cache_first", "cache_second"):
+        print(f"last modules, {key}: " + json.dumps(out[key], default=str))
+    return out
+
+
+def check_last_modules(run) -> None:
+    compat = run["compat"]
+    _require(compat["captured"], "compat: the training chunk was not captured")
+    _require(compat["graph"][1][-1] < compat["graph"][1][0], "compat: the logged loss did not fall")
+    _require(compat["shapes"] == [[TRAIN_M, N_STEPS + 1, D], [TRAIN_M, N_STEPS + 1, 1]],
+             f"compat: compute's shapes {compat['shapes']}")
+    for k in ("loss_rel", "y0_rel", "X_rel", "Y_rel"):
+        _require(compat[k] <= LAST_COMPAT_TOL, f"compat: LossFunction.compute {k} "
+                 f"{compat[k]:.3g} > {LAST_COMPAT_TOL}")
+    art = run["artifact"]
+    for B, e in art["errors"].items():
+        _require(e["shape_ok"], f"artifact at B = {B}: shapes or values wrong")
+        _require(max(e["u"], e["Z"]) <= LAST_SERVE_TOL, f"artifact at B = {B}: (u, Z) "
+                 f"{e['u']:.3g}, {e['Z']:.3g} of max|.| from evaluate_u > {LAST_SERVE_TOL}")
+    remat = run["remat"]
+    for label, r in remat.items():
+        _require(r["captured"], f"remat {label}: not captured")
+        _require(all(r["captured_vs_eager"].values()),
+                 f"remat {label}: captured vs eager {r['captured_vs_eager']}")
+        _require(max(r["loss_rel"], r["grad_rel"]) <= LAST_REMAT_TOL,
+                 f"remat {label}: loss {r['loss_rel']:.3g}, gradients {r['grad_rel']:.3g} "
+                 f"from remat=False > {LAST_REMAT_TOL}")
+    tr = run["trace"]
+    want = {"mlp_u_z_fwd_kernel": (N_STEPS + 1) * LAST_TRACE_ITERS,
+            "mlp_u_z_bwd_rows": (N_STEPS + 1) * LAST_TRACE_ITERS,
+            "mlp_u_z_bwd_wgrad": (N_STEPS + 1) * LAST_TRACE_ITERS}
+    _require(tr["markers"] == 1 and tr["runs"] == want,
+             f"profile_trace: kernels {tr['runs']} (want {want}), markers {tr['markers']}")
+    _require(run["counts"]["mlp_u_z_fwd"] == 2 * (N_STEPS + 1)
+             and run["counts"]["mlp_u_z_bwd"] == 2 * (N_STEPS + 1),
+             f"last modules: wrapper calls {run['counts']} (want the traced run's warm-up "
+             "and capture only)")
+    an = run["anomalies"]
+    for k in ("forward", "backward"):
+        _require(an[k].startswith("FloatingPointError: NaN"), f"detect_anomalies {k}: {an[k]}")
+    _require(an["trainer_eager"] and an["trainer_losses_finite"],
+             f"detect_anomalies: the trainer inside it {an}")
+    ck = run["checkpoint"]
+    _require(ck["without_template"] and ck["with_template"], f"orbax-style checkpoint {ck}")
+    cl = run["callable"]
+    _require(cl["callable"]["captured"] and cl["builtin"]["captured"], "callable: not captured")
+    _require(cl["callable"]["losses"] == cl["builtin"]["losses"]
+             and cl["callable"]["y0"] == cl["builtin"]["y0"],
+             f"callable BSB-100 vs the built-in: {cl}")
+    c1, c2 = run["cache_first"], run["cache_second"]
+    _require(c1["nvcc_runs"] == len(c1["loaded"]) and len(c1["files"]) == len(c1["loaded"]),
+             f"kernel cache, first process: {c1}")
+    _require(c2["nvcc_runs"] == 0 and c2["files"] == c1["files"],
+             f"kernel cache, second process: {c2}")
+    _require(c1["dir"] == c2["dir"], "kernel cache: the two processes used other directories")
+
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-rank"]:
         return parallel_rank(sys.argv[2])
@@ -3277,6 +3706,7 @@ def main() -> int:
     _build.build_all()
     lap("build")
     print(f"kernel build: {phase_s['build']:.1f} s")
+    cache = start_cache_build()  # the last modules' phase reads it
 
     from dnnpde_tpu_torch.pde import BasketCallOption, BlackScholesBarenblatt
 
@@ -3339,6 +3769,9 @@ def main() -> int:
     par = drive_parallel(device)
     check_parallel(par)
     lap("parallel")
+    last_run = drive_last_modules(train["trainer"], device, cache)
+    check_last_modules(last_run)
+    lap("last_modules")
 
     print("training rate: " + json.dumps(time_training(device)))
     print("training iteration (traced, captured chunk): " + json.dumps(trace_iteration(device)))
@@ -3365,6 +3798,10 @@ def main() -> int:
         {name: r["seconds"] for name, r in execs["calls"].items()}))
     print("replica rate (K = 3, captured) beside one solo Trainer: "
           + json.dumps(replica_check["rate"]))
+    print("last modules: artifact serving latency " + json.dumps(last_run["artifact"]["latency"])
+          + "; remat at M = 2048 (it/s, peak bytes) " + json.dumps(
+              {k: [r["it_per_s"], r["peak_bytes_over_held"]]
+               for k, r in last_run["remat"].items()}))
     lap("timing")
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
@@ -3377,7 +3814,7 @@ def main() -> int:
     paths = {"training": train, "serving": run, "basket": basket, "harness": harness,
              "stopping": stopping, "cli": cli_run, "sdenet": sde, "surface": surface,
              "executors": execs, "replicas": replicas, "ensembles": ensembles,
-             "oracles": oracles, "parallel": par}
+             "oracles": oracles, "parallel": par, "last_modules": last_run}
 
     def launches(name, traced_names=()):
         """The kernel's launches on each path: on the training, basket and

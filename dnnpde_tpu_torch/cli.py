@@ -356,10 +356,11 @@ def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     import torch.distributed as dist
 
-    from dnnpde_tpu_torch.runtime import default_device
+    from dnnpde_tpu_torch.runtime import default_device, maybe_enable_compilation_cache_from_env
 
-    # The JAX CLI's DNNPDE_COMPILATION_CACHE names XLA's persistent cache;
-    # nothing here compiles through XLA, so the variable has no counterpart.
+    # DNNPDE_COMPILATION_CACHE=<dir> makes repeat CLI runs find their kernels
+    # built (no nvcc) in that directory
+    maybe_enable_compilation_cache_from_env()
     resolved = default_device(device)
     if args.surface:
         return _surface_main(args, resolved)

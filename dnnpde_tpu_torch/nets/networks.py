@@ -26,6 +26,32 @@ from dnnpde_tpu_torch.nets.initializers import xavier_uniform
 from dnnpde_tpu_torch.runtime import default_device
 
 _EPSILON = 0.01  # NAIS-Net stability margin
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x·c mod 2³² for int64 x < 2³², in 16-bit halves so that no product
+    leaves int64."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * c) & 0xFFFF) * 65536) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash (Wellons' lowbias32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def fixed_uniform(rows: int, cols: int, stream: int, device) -> torch.Tensor:
+    """A fixed U[0, 1) float32 array of (rows, cols), entry (r, c) a hash of
+    (stream, r·cols + c): the same values on every device and for every
+    prefix of rows."""
+    key = (0x9E3779B9 * (stream + 1)) & _MASK32
+    n = torch.arange(rows * cols, dtype=torch.int64, device=device).reshape(rows, cols)
+    bits = _mix32(_mix32(n & _MASK32) ^ key)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def _dtype(compute_dtype):
@@ -255,10 +281,10 @@ class SDENet(nn.Module):
     where the noise is U[0, 1) of the block's (batch, width) shape, one draw
     per evaluation and per block, in block order. ``forward(x, noise)``
     takes those draws as a list (see :meth:`draw_noise`); with
-    ``noise=None`` the blocks draw from a fresh ``torch.Generator`` seeded
-    0 on x's device, the fixed noise of the evaluation paths (JAX's
-    ``PRNGKey(0)``), so an evaluation repeats exactly from call to call.
-    ``deterministic=True`` puts 0.5 in place of the noise.
+    ``noise=None`` the blocks take the fixed noise of the evaluation paths
+    (JAX's ``PRNGKey(0)``; :meth:`eval_noise`), so an evaluation repeats
+    exactly from call to call. ``deterministic=True`` puts 0.5 in place of
+    the noise.
     ``brownian[i]`` is JAX's ``brownian_kernel_{i}``."""
 
     def __init__(
@@ -296,14 +322,15 @@ class SDENet(nn.Module):
         return [draw(shape) for shape in self.noise_shapes(batch)]
 
     def eval_noise(self, batch: int, device) -> list[torch.Tensor] | None:
-        """The fixed noise of an evaluation of ``batch`` rows, drawn from a
-        fresh generator seeded 0 on ``device`` (None for a deterministic
-        net)."""
+        """The fixed noise of an evaluation of ``batch`` rows (None for a
+        deterministic net): block i's entry (r, c) is a hash of (i, r, c),
+        the same on every device. It is made of integer tensor ops, so an
+        exported program (``serve``) computes it for whatever batch it is
+        given, as JAX's exported program draws its fixed key's noise."""
         if self.deterministic:
             return None
-        gen = torch.Generator(device=device).manual_seed(0)
-        return self.draw_noise(lambda shape: torch.rand(shape, generator=gen, device=device),
-                               batch)
+        return [fixed_uniform(rows, cols, i, device)
+                for i, (rows, cols) in enumerate(self.noise_shapes(batch))]
 
     def forward(self, x: torch.Tensor, noise=None) -> torch.Tensor:
         if noise is None:

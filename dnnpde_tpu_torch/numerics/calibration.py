@@ -28,7 +28,6 @@ import torch.nn.functional as F
 
 from dnnpde_tpu_torch.numerics.heston import HestonParams, _prob
 from dnnpde_tpu_torch.runtime import default_device
-from dnnpde_tpu_torch.train.optimizers import build_optimizer
 
 Tensor = torch.Tensor
 
@@ -84,6 +83,9 @@ def calibrate_heston(
     lr_stages=3`` for a production fit: a single fixed-lr stage stalls in
     the flat (κ, ρ) valley). ``device``: None = the first CUDA card (raises
     without one); "cpu" fits on the CPU."""
+    # imported here: train imports the solver, which imports numerics through pde
+    from dnnpde_tpu_torch.train.optimizers import build_optimizer
+
     dev = default_device(device)
 
     def f32(a):

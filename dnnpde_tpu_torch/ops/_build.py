@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/dnnpde_kernels/<name>-<hash>.so`` at
-the repo root, where ``<hash>`` covers the source, the shared headers and the
-compiler flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. Nothing here runs at import time: a wrapper calls :func:`load` the
+Each ``csrc/<name>.cu`` becomes ``<name>-<hash>.so`` in ``BUILD_DIR``
+(``build/dnnpde_kernels`` at the repo root unless
+``runtime.enable_compilation_cache`` moved it), where ``<hash>`` covers the
+source, the shared headers and the compiler flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time: a wrapper calls :func:`load` the
 first time it launches a kernel on a CUDA tensor, and ``chip_smoke.py`` calls
 :func:`build_all` to compile every source in parallel up front.
 

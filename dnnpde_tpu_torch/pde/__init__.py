@@ -1,4 +1,4 @@
-from dnnpde_tpu_torch.pde.base import PDEProblem
+from dnnpde_tpu_torch.pde.base import CallableProblem, PDEProblem, as_callable_problem
 from dnnpde_tpu_torch.pde.heston import HestonAmericanPut, HestonPDE
 from dnnpde_tpu_torch.pde.problems import (
     AmericanPutOption,
@@ -16,6 +16,8 @@ from dnnpde_tpu_torch.pde.problems import (
 
 __all__ = [
     "PDEProblem",
+    "as_callable_problem",
+    "CallableProblem",
     "BlackScholesBarenblatt",
     "CallOption1D",
     "CallOptionND",

@@ -18,7 +18,7 @@ Shape conventions (batch M, state dim D, noise dim Dw):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -173,3 +173,71 @@ class PDEProblem:
     def z_sigma_dw(self, Z: Tensor, sig: Tensor, dW: Tensor) -> Tensor:
         """BSDE martingale term Zᵀ(σ·ΔW) summed over dims, (M, 1)."""
         return torch.sum(Z * self.sigma_dw(sig, dW), dim=-1, keepdim=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class CallableProblem(PDEProblem):
+    """Problem assembled from plain functions (user extension / tests),
+    which take and return tensors.
+
+    The dynamics fields use ``_fn`` suffixes so they cannot shadow the
+    :class:`PDEProblem` methods they implement. ``x0_`` is a tuple, so the
+    problem stays hashable."""
+
+    dim_: int = 1
+    sigma_kind_: str = "diag"
+    x0_: tuple = (1.0,)
+    mu_fn: Optional[Callable] = None
+    sigma_fn: Optional[Callable] = None
+    phi_fn: Optional[Callable] = None
+    g_fn: Optional[Callable] = None
+    exact_fn: Optional[Callable] = None
+
+    @property
+    def dim(self) -> int:
+        return self.dim_
+
+    @property
+    def sigma_kind(self) -> str:
+        return self.sigma_kind_
+
+    @property
+    def x0(self) -> Tensor:
+        return torch.tensor(self.x0_, dtype=torch.float32).reshape(self.dim_)
+
+    def mu(self, t, X, Y, Z):
+        return self.mu_fn(t, X, Y, Z)
+
+    def sigma(self, t, X, Y):
+        return self.sigma_fn(t, X, Y)
+
+    def phi(self, t, X, Y, Z):
+        return self.phi_fn(t, X, Y, Z)
+
+    def g(self, X):
+        return self.g_fn(X)
+
+    def exact_solution(self, t, X):
+        return self.exact_fn(t, X) if self.exact_fn is not None else None
+
+
+def as_callable_problem(
+    *,
+    dim: int,
+    T: float,
+    x0,
+    mu: Callable,
+    sigma: Callable,
+    phi: Callable,
+    g: Callable,
+    sigma_kind: str = "diag",
+    name: str = "custom",
+    exact: Optional[Callable] = None,
+) -> PDEProblem:
+    """Build an ad-hoc problem from plain functions on tensors (for user
+    extension and tests)."""
+    x0 = torch.as_tensor(x0, dtype=torch.float64).reshape(dim)
+    return CallableProblem(
+        T=T, name=name, dim_=dim, sigma_kind_=sigma_kind, x0_=tuple(x0.tolist()),
+        mu_fn=mu, sigma_fn=sigma, phi_fn=phi, g_fn=g, exact_fn=exact,
+    )

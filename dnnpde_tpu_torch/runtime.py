@@ -1,13 +1,31 @@
-"""Device selection for the PyTorch port.
+"""Device selection and the kernel cache of the PyTorch port.
 
 Entry points take ``device=None``, which means the current CUDA card (the
 first, unless ``parallel.init_distributed`` set this rank's). The CPU is
 used only when the caller asks for it by name; there is no silent fallback.
+
+The programs the port compiles are its CUDA kernels (``csrc/*.cu``, built by
+``nvcc`` the first time a wrapper launches one, ``ops/_build.py``), cached by
+the hash of their sources and flags in a directory: by default
+``build/dnnpde_kernels`` at the repo root, or where
+:func:`enable_compilation_cache` points it, the counterpart of the JAX
+package's persistent XLA cache. A later process that finds a kernel there
+loads it and runs no ``nvcc``. Opt in by one call before the first launch::
+
+    from dnnpde_tpu_torch.runtime import enable_compilation_cache
+    enable_compilation_cache("~/.cache/dnnpde_tpu_torch_kernels")
+
+or by ``DNNPDE_COMPILATION_CACHE=<dir>``, which the CLI (``python -m
+dnnpde_tpu_torch``) honors. A training chunk's CUDA graph is captured anew in
+every process: CUDA graphs hold device addresses of one process and cannot be
+written to disk.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+from pathlib import Path
 
 import torch
 
@@ -74,3 +92,27 @@ def full_f32_matmul():
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
         torch.set_float32_matmul_precision(saved[2])
+
+
+def enable_compilation_cache(cache_dir: str, min_compile_time_secs: float = 1.0) -> str:
+    """Build and find the CUDA kernels in ``cache_dir`` (created if needed)
+    from now on. Safe to call more than once; the last directory wins.
+    ``min_compile_time_secs`` is accepted for the JAX signature and has no
+    effect: every kernel build takes seconds, so each is kept. Returns the
+    resolved directory."""
+    from dnnpde_tpu_torch.ops import _build
+
+    path = Path(os.path.expanduser(cache_dir)).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    _build.BUILD_DIR = path
+    return str(path)
+
+
+def maybe_enable_compilation_cache_from_env(
+    env_var: str = "DNNPDE_COMPILATION_CACHE",
+) -> str | None:
+    """Enable the cache iff ``env_var`` is set to a directory path."""
+    target = os.environ.get(env_var)
+    if not target:
+        return None
+    return enable_compilation_cache(target)

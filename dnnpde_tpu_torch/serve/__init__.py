@@ -1,3 +1,17 @@
-from dnnpde_tpu_torch.serve.export import ServedSolution, load_solution, save_solution
+"""Serving: a self-contained ``torch.export`` artifact of a trained solution."""
 
-__all__ = ["ServedSolution", "load_solution", "save_solution"]
+from dnnpde_tpu_torch.serve.export import (
+    ServedSolution,
+    export_solution,
+    export_trainer,
+    load_solution,
+    save_solution,
+)
+
+__all__ = [
+    "ServedSolution",
+    "export_solution",
+    "export_trainer",
+    "load_solution",
+    "save_solution",
+]

@@ -1,108 +1,127 @@
-"""Save and load a learned solution ``(t, X) → (u, Z = ∇ₓu)``, the
+"""Export and load a learned solution ``(t, X) → (u, Z = ∇ₓu)``, the
 counterpart of ``dnnpde_tpu/serve/export.py``.
 
-The artifact is a ``torch.save`` file of plain data: the net's mode, widths,
-activation and weights, the state dimension and, when the solution has an
-output transform, the problem's class name and dataclass fields, from which
-``load_solution`` rebuilds the problem. It is not a StableHLO program:
-loading it needs this package.
+What is exported is the solution function, not the model: one
+``torch.export`` program ``(t (b, 1), X (b, D)) → (u (b, 1), Z (b, D))`` with
 
-``ServedSolution`` computes u in f32 and Z by one reverse pass through
-``transform_u ∘ net``, as the JAX package's ``_solution_fn`` serves them.
-An FC net without a transform takes the fused f32 ``mlp_u_z`` (its weights
-in the JAX layout, ``Ws``/``bs``); kernel K1 (bf16 dot operands) serves
-``Trainer.predict`` under ``SolverConfig(fused_net_u="cuda")``, as the
-Pallas K1 does in JAX. A stochastic net (``SDENet``) is served under the
-fixed noise of the evaluation paths, as JAX serves it with a fixed key: the
-served (u, Z) are ``Trainer.evaluate_u``'s, and repeat from call to call.
+- the trained weights baked in (a self-contained artifact: serving imports
+  none of the port's nets, problems or solver, and builds no model),
+- a dynamic batch dimension (``torch.export.Dim``), so one artifact serves
+  any batch,
+- Z = ∇ₓu computed inside the program in f32: the reverse pass through
+  ``transform_u ∘ net`` is traced into plain ATen ops (``make_fx``, the
+  weights passed as inputs), the same ``make_net_u`` semantics as training,
+  so the greeks ship with the price.
+
+Every net is covered, behind any output transform; a stochastic net
+(``SDENet``) is served under its fixed evaluation noise, which the program
+computes for the batch it is given. The file is ``torch.export.save``'s
+archive with one JSON record of what it serves (dim, net, problem).
+:func:`load_solution` refuses an archive that holds pickled objects, so
+loading unpickles nothing but tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import functools
+import io
+import json
+import zipfile
+from typing import Any
 
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.nets.networks import (
-    MLP,
-    NaisNet,
-    ResNet,
-    SDENet,
-    VerletNet,
-    build_network,
-)
-from dnnpde_tpu_torch.ops.fused_net_u import _ACT_DERIVS, mlp_u_z
-from dnnpde_tpu_torch.params import extract_mlp_params
-from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import default_device
-from dnnpde_tpu_torch.solver.bsde import make_net_u
 
 Tensor = torch.Tensor
 
-_NET_MODES = {MLP: "FC", NaisNet: "Naisnet", ResNet: "Resnet", VerletNet: "Verlet",
-              SDENet: "SDEnet"}
+_RECORD = "dnnpde_solution.json"
+_MODES = {"MLP": "FC", "NaisNet": "Naisnet", "ResNet": "Resnet", "VerletNet": "Verlet",
+          "SDENet": "SDEnet"}
 
 
-def _problem_classes() -> dict:
-    from dnnpde_tpu_torch import pde
+class _Solution(torch.nn.Module):
+    """``make_net_u(net, transform)`` as a module, for tracing with the
+    weights swapped for inputs (``torch.func.functional_call``)."""
 
-    return {name: getattr(pde, name) for name in pde.__all__ if name != "PDEProblem"}
+    def __init__(self, net: torch.nn.Module, transform):
+        from dnnpde_tpu_torch.solver.bsde import make_net_u
 
+        super().__init__()
+        self.net = net
+        self.net_u = make_net_u(net, transform)
 
-def _problem_record(transform) -> Optional[dict]:
-    """The problem behind ``transform`` (a bound ``problem.transform_u``) as
-    plain data: class name and dataclass fields."""
-    if transform is None:
-        return None
-    problem = getattr(transform, "__self__", None)
-    if not isinstance(problem, PDEProblem) or getattr(transform, "__name__", "") != "transform_u":
-        raise ValueError(
-            "transform must be a problem's bound transform_u (the artifact stores the problem)"
-        )
-    name = type(problem).__name__
-    if _problem_classes().get(name) is not type(problem):
-        raise ValueError(f"cannot store a {name}: not a problem class of dnnpde_tpu_torch.pde")
-    return {"class": name, "fields": {f.name: getattr(problem, f.name)
-                                      for f in dataclasses.fields(problem)}}
+    def forward(self, t: Tensor, X: Tensor):
+        with torch.no_grad():
+            return self.net_u(t, X)
 
 
-def export_solution(net: torch.nn.Module, dim: int, transform=None) -> dict:
-    """The artifact of ``net``'s solution for a ``dim``-dimensional state, as
-    plain data. ``transform``: the problem's ``transform_u`` (its problem is
-    stored), or None. An SDENet's ``h``, ``eps`` and ``deterministic`` are
-    stored with its weights."""
-    mode = _NET_MODES.get(type(net))
-    if mode is None:
-        raise NotImplementedError(f"cannot serve a {type(net).__name__}")
-    act = str(net.activation).lower()
-    if act not in _ACT_DERIVS:
-        raise ValueError(f"cannot serve activation {net.activation!r}")
-    if net.layers[0] != dim + 1 or net.layers[-1] != 1:
-        raise ValueError(f"net layers {net.layers} do not map [t, X] ({dim + 1}) to u (1)")
-    blob: dict[str, Any] = {
-        "mode": mode, "layers": list(net.layers), "activation": act, "dim": int(dim),
-        "problem": _problem_record(transform),
+class _Baked(torch.nn.Module):
+    """The traced solution with its weights as buffers: what is exported."""
+
+    def __init__(self, graph: torch.nn.Module, weights: list[Tensor]):
+        super().__init__()
+        self.graph = graph
+        for i, w in enumerate(weights):
+            self.register_buffer(f"w{i}", w)
+        self.n = len(weights)
+
+    def forward(self, t: Tensor, X: Tensor):
+        return self.graph(t, X, *(getattr(self, f"w{i}") for i in range(self.n)))
+
+
+def export_solution(net: torch.nn.Module, dim: int, transform=None,
+                    stochastic: bool = False) -> bytes:
+    """The artifact of ``net``'s solution for a ``dim``-dimensional state,
+    as bytes. ``transform``: the problem's output parametrization
+    ``(t, X, raw) → u`` (pass ``problem.transform_u``), or None.
+    ``stochastic`` is accepted for the JAX signature: an ``SDENet`` is always
+    served under its fixed evaluation noise."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    layers = getattr(net, "layers", None)
+    if layers is not None and (layers[0] != dim + 1 or layers[-1] != 1):
+        raise ValueError(f"net layers {list(layers)} do not map [t, X] ({dim + 1}) to u (1)")
+    module = _Solution(net, transform)
+    named = dict(module.named_parameters())
+    named.update(module.named_buffers())
+    names = list(named)
+    weights = [v.detach().to("cpu", torch.float32, copy=True) for v in named.values()]
+
+    def solution(t: Tensor, X: Tensor, *tensors: Tensor):
+        return torch.func.functional_call(module, dict(zip(names, tensors)), (t, X))
+
+    example = (torch.full((7, 1), 0.5), torch.ones(7, dim))
+    graph = make_fx(solution, tracing_mode="symbolic")(*example, *weights)
+    u, Z = graph(*example, *weights)
+    if u.shape != (7, 1) or Z.shape != (7, dim):
+        raise ValueError(f"{type(net).__name__} does not map [t, X] ({dim + 1}) to u (1)")
+    batch = torch.export.Dim("b", min=1)
+    program = torch.export.export(_Baked(graph, weights), example,
+                                  dynamic_shapes=({0: batch}, {0: batch}), strict=False)
+    owner = getattr(transform, "__self__", None)  # the problem of a bound transform_u
+    record = {
+        "dim": int(dim),
+        "mode": _MODES.get(type(net).__name__, type(net).__name__),
+        "layers": None if layers is None else [int(w) for w in layers],
+        "activation": None if layers is None else str(net.activation).lower(),
+        "problem": None if owner is None else type(owner).__name__,
     }
-    if mode == "FC":
-        Ws, bs = extract_mlp_params(net)
-        blob["Ws"] = [w.detach().cpu() for w in Ws]
-        blob["bs"] = [b.detach().cpu() for b in bs]
-    else:
-        blob["state"] = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-    if mode == "SDEnet":
-        blob["net_kwargs"] = {"h": net.h, "eps": net.eps, "deterministic": net.deterministic}
-    return blob
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={_RECORD: json.dumps(record)})
+    return buf.getvalue()
 
 
-def export_trainer(trainer, use_ema: bool = False) -> dict:
+def export_trainer(trainer, use_ema: bool = False) -> bytes:
     """The artifact of a :class:`~dnnpde_tpu_torch.train.Trainer`'s current
-    solution; ``use_ema=True`` stores the EMA shadow (needs ``ema_decay``)."""
+    solution; ``use_ema=True`` bakes the EMA shadow (needs ``ema_decay``)."""
     problem = trainer.problem
     return export_solution(
         trainer.ema_params if use_ema else trainer.params, problem.dim,
         transform=problem.transform_u if problem.has_output_transform else None,
+        stochastic=bool(trainer.config.stochastic_net),
     )
 
 
@@ -114,25 +133,74 @@ def save_solution(path: str, *args, **kwargs) -> None:
         blob = export_trainer(*args, **kwargs)
     else:
         blob = export_solution(*args, **kwargs)
-    torch.save(blob, path)
+    with open(path, "wb") as f:
+        f.write(blob)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServedSolution:
-    """A loaded solution: u and ∇ₓu at any (t, X) batch on ``device``.
+    """A loaded solution artifact: u and ∇ₓu at any (t, X) batch on
+    ``device``. ``program`` is the ``torch.export.ExportedProgram``;
+    ``record`` says what it serves (``dim``, ``mode``, ``layers``,
+    ``activation``, ``problem``: the output transform's problem class, or
+    None)."""
 
-    ``Ws``/``bs`` hold an FC net's weights in the JAX layout; ``net`` holds
-    any other net, and ``problem`` the output transform's problem."""
-
-    layers: tuple[int, ...]
-    activation: str
-    dim: int
-    Ws: tuple[Tensor, ...]
-    bs: tuple[Tensor, ...]
+    program: torch.export.ExportedProgram
+    record: dict
     device: torch.device
-    mode: str = "FC"
-    net: Optional[torch.nn.Module] = None
-    problem: Optional[PDEProblem] = None
+
+    @property
+    def dim(self) -> int:
+        return int(self.record["dim"])
+
+    @functools.cached_property
+    def _call(self):
+        """``(t, X) -> (u, Z)``: the program's graph with its weights bound,
+        the ops that read the weights only (their transposes) and the reverse
+        pass's constant seed made once, at load, and its detaches and dead
+        ops dropped. ``program.module()`` would check each request's shapes
+        against the program's symbolic constraints and flatten its inputs
+        first, which doubles the host time of a request;
+        ``u_and_grad_device`` shapes the request itself."""
+        from torch.export.graph_signature import InputKind
+
+        program = self.program
+        graph, env, known, consts = torch.fx.Graph(), {}, {}, {}
+        specs = iter(program.graph_signature.input_specs)
+        for node in program.graph_module.graph.nodes:
+            if node.op == "placeholder":
+                spec = next(specs)
+                if spec.kind == InputKind.USER_INPUT:
+                    env[node] = graph.placeholder(node.name)
+                elif spec.kind in (InputKind.PARAMETER, InputKind.BUFFER):
+                    known[node] = (program.state_dict[spec.target] if spec.persistent is not False
+                                   else program.constants[spec.target])
+                elif spec.kind == InputKind.CONSTANT_TENSOR:
+                    known[node] = program.constants[spec.target]
+                else:
+                    raise ValueError(f"the artifact's program takes a {spec.kind} input")
+            elif (node.op == "call_function" and node.all_input_nodes
+                  and all(a in known for a in node.all_input_nodes)):
+                args, kwargs = torch.fx.node.map_arg((node.args, node.kwargs), known.get)
+                known[node] = node.target(*args, **kwargs)
+            elif node.target is torch.ops.aten.detach.default:  # a no-op without autograd
+                env[node] = env[node.args[0]]
+            elif node.target in _FILLS and _static(node.args[0]):
+                # the reverse pass's seed: its value depends on no request
+                val = node.args[0].meta["val"]
+                stand_in = torch.empty(val.shape, dtype=val.dtype, device=self.device)
+                known[node] = node.target(stand_in, *node.args[1:], **node.kwargs)
+            else:
+                for a in node.all_input_nodes:
+                    if a in known and a not in env:
+                        consts[f"_c{len(consts)}"] = known[a]
+                        env[a] = graph.get_attr(f"_c{len(consts) - 1}")
+                env[node] = graph.node_copy(node, env.__getitem__)
+        graph.eliminate_dead_code()
+        root = torch.nn.Module()
+        for name, value in consts.items():
+            setattr(root, name, value)
+        return torch.fx.GraphModule(root, graph).forward
 
     def u_and_grad(self, t, X) -> tuple[np.ndarray, np.ndarray]:
         """(u (b,1), Z (b,D)) as host numpy: t (b, 1) or scalar-broadcastable,
@@ -140,16 +208,22 @@ class ServedSolution:
         u, Z = self.u_and_grad_device(t, X)
         return u.cpu().numpy(), Z.cpu().numpy()
 
+    def _input(self, v, cols: int) -> Tensor:
+        """``v`` as a contiguous f32 (b, cols) tensor on the device; one that
+        is already so is passed on without a call (each costs host time)."""
+        if (isinstance(v, Tensor) and v.dtype == torch.float32 and v.device == self.device
+                and v.dim() == 2 and v.shape[1] == cols and v.is_contiguous()):
+            return v
+        v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
+        return v.reshape(-1, cols).contiguous()
+
     def u_and_grad_device(self, t, X) -> tuple[Tensor, Tensor]:
         """(u, Z) as tensors on the device, without a host sync."""
-        X = torch.as_tensor(X, dtype=torch.float32, device=self.device).reshape(-1, self.dim)
-        t = torch.as_tensor(t, dtype=torch.float32, device=self.device).reshape(-1, 1)
-        t = t.expand(X.shape[0], 1)
-        if self.net is None and self.problem is None:
-            u, z_full = mlp_u_z(self.Ws, self.bs, torch.cat([t, X], dim=1), self.activation)
-            return u, z_full[:, 1:]
+        X, t = self._input(X, self.dim), self._input(t, 1)
+        if t.shape[0] != X.shape[0]:
+            t = t.expand(X.shape[0], 1).contiguous()
         with torch.no_grad():
-            return make_net_u(self.net, self.problem.transform_u if self.problem else None)(t, X)
+            return self._call(t, X)
 
     def u(self, t, X) -> np.ndarray:
         return self.u_and_grad(t, X)[0]
@@ -166,33 +240,54 @@ class ServedSolution:
         return u.reshape(nt, nx)
 
 
+_FILLS = (torch.ops.aten.ones_like.default, torch.ops.aten.zeros_like.default,
+          torch.ops.aten.full_like.default)
+
+
+def _static(node) -> bool:
+    """Whether a graph node's tensor has a shape known before any request."""
+    val = node.meta.get("val") if isinstance(node, torch.fx.Node) else None
+    return isinstance(val, torch.Tensor) and all(isinstance(d, int) for d in val.shape)
+
+
+def _pickled(node: Any) -> bool:
+    """Whether a JSON record of the archive marks any entry as pickled."""
+    if isinstance(node, dict):
+        return bool(node.get("use_pickle")) or any(_pickled(v) for v in node.values())
+    if isinstance(node, list):
+        return any(_pickled(v) for v in node)
+    return False
+
+
+def _check_archive(blob: bytes) -> None:
+    """Refuse an archive that would make ``torch.export.load`` unpickle
+    anything but tensors: an entry marked pickled, or a ``.pt`` member that
+    ``torch.load(weights_only=True)`` rejects (``torch.export.load`` would
+    retry it with ``weights_only=False``)."""
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        if not any(n.endswith(_RECORD) for n in z.namelist()):
+            raise ValueError("not a solution artifact of save_solution")
+        for name in z.namelist():
+            if name.endswith(".json") and not name.endswith(_RECORD):
+                if _pickled(json.loads(z.read(name))):
+                    raise ValueError(f"the artifact's {name} holds pickled objects; not loaded")
+            elif name.endswith(".pt"):
+                try:
+                    torch.load(io.BytesIO(z.read(name)), weights_only=True)
+                except Exception as e:  # any refusal of the safe unpickler
+                    raise ValueError(f"the artifact's {name} holds more than tensors; "
+                                     "not loaded") from e
+
+
 def load_solution(path: str, device=None) -> ServedSolution:
-    """Load a solution written by :func:`save_solution` onto ``device``
+    """Load an artifact written by :func:`save_solution` onto ``device``
     (None: the first CUDA card)."""
+    from torch.export.passes import move_to_device_pass
+
     device = default_device(device)
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    mode = blob.get("mode", "FC")
-    record = blob.get("problem")
-    problem = None
-    if record is not None:
-        problem = _problem_classes()[record["class"]](**record["fields"])
-    Ws = tuple(w.to(device).contiguous() for w in blob.get("Ws", ()))
-    bs = tuple(b.to(device).contiguous() for b in blob.get("bs", ()))
-    net = None
-    init = dict(generator=torch.Generator(), device=device)  # overwritten below
-    if mode == "FC" and problem is not None:
-        net = MLP(blob["layers"], blob["activation"], **init)
-        with torch.no_grad():
-            for layer, w, b in zip(net.dense, Ws, bs):
-                layer.linear.weight.copy_(w.t())
-                layer.linear.bias.copy_(b)
-    elif mode != "FC":
-        net = build_network(mode, blob["layers"], blob["activation"], **init,
-                            **blob.get("net_kwargs", {}))
-        net.load_state_dict(blob["state"])
-    if net is not None:
-        net.requires_grad_(False)
-    return ServedSolution(
-        layers=tuple(blob["layers"]), activation=blob["activation"], dim=int(blob["dim"]),
-        Ws=Ws, bs=bs, device=device, mode=mode, net=net, problem=problem,
-    )
+    with open(path, "rb") as f:
+        blob = f.read()
+    _check_archive(blob)
+    extra = {_RECORD: ""}
+    program = move_to_device_pass(torch.export.load(io.BytesIO(blob), extra_files=extra), device)
+    return ServedSolution(program, json.loads(extra[_RECORD]), device)

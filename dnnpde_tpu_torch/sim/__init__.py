@@ -1,6 +1,7 @@
 from dnnpde_tpu_torch.sim.brownian import (
     brownian_increments,
     brownian_paths,
+    paths_to_increments,
     time_grid,
     time_major_batch,
 )
@@ -22,6 +23,7 @@ from dnnpde_tpu_torch.sim.correlation import (
 __all__ = [
     "brownian_increments",
     "brownian_paths",
+    "paths_to_increments",
     "time_grid",
     "time_major_batch",
     "CORRELATION_TYPES",

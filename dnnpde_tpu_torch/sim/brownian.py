@@ -87,3 +87,10 @@ def time_major_batch(
     dW = brownian_increments(generator, M, N, D, T / N, chol, dtype)
     ts = time_grid(M, N, T, dtype, dW.device).transpose(0, 1)
     return ts, dW.transpose(0, 1)
+
+
+def paths_to_increments(t: Tensor, W: Tensor) -> tuple[Tensor, Tensor]:
+    """Convert (t, W) path arrays to per-step (dt, dW) increments.
+
+    Returns dt (M, N, 1) and dW (M, N, D), the solver's currency."""
+    return torch.diff(t, dim=1), torch.diff(W, dim=1)

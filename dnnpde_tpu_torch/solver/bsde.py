@@ -34,10 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import OnDevice
+from dnnpde_tpu_torch.solver.remat import policy_contexts, resolve_policy
 
 Tensor = torch.Tensor
-
-_LATER = "is not ported yet (ROADMAP.md Queue 1, item 6: remat_policy, unroll)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +46,19 @@ class SolverConfig:
     remat: recompute each rollout step in the backward pass
       (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
       activations, as ``jax.checkpoint`` does for the scan body.
+    remat_policy: read only when ``remat`` is on, as in JAX: a name of
+      ``jax.checkpoint_policies``' plain policies, whose step outputs the
+      forward pass keeps for the recompute (``solver/remat.py``): None or
+      "nothing_saveable" = full remat; "everything_saveable"; "dots_saveable"
+      or "checkpoint_dots" = the outputs of ``mm``, ``addmm`` and ``bmm``,
+      recomputing the elementwise chain; "dots_with_no_batch_dims_saveable"
+      or "checkpoint_dots_with_no_batch_dims" = those of 2-D products only.
+      JAX's factory policies need arguments this config cannot carry, and
+      their names raise ``ValueError``. A policy changes no number.
+    unroll: ``lax.scan``'s unroll factor (an int ≥ 1, or a bool), accepted
+      for parity. The rollout here is a Python loop, and a training
+      iteration captured into a CUDA graph replays it fully unrolled, so
+      the value changes nothing; a non-positive int raises ``ValueError``.
     fused_net_u: False = (u, Z) by autograd of the net (``make_net_u``);
       True or "torch" = the fused f32 ``mlp_u_z`` (sine/tanh/relu),
       differentiated by autograd; "cuda" = the fused kernel pair K1 + K2
@@ -72,10 +84,6 @@ class SolverConfig:
       the loss draws one evaluation's noise (``net.draw_noise``) before each
       of the N + 1 evaluations, in order, from the ``noise`` callable it is
       given; the local objective's target at a step sees that step's noise.
-
-    ``unroll`` and ``remat_policy`` exist for parity with the JAX config;
-    any value but their default raises ``NotImplementedError`` in
-    :func:`make_loss_fn`.
     """
 
     remat: bool = True
@@ -179,7 +187,7 @@ def _terminal_penalty(problem: PDEProblem, X_N: Tensor, Y_N: Tensor, Z_N: Tensor
 
 
 def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
-    """The JAX package's config errors, then the options not ported yet."""
+    """The JAX package's config errors."""
     if config.objective not in ("global", "local"):
         raise ValueError(f"objective must be 'global' or 'local', got {config.objective!r}")
     local = config.objective == "local"
@@ -195,13 +203,9 @@ def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
             "clamps the per-step regression target at the payoff, and the "
             "global summed-residual rollout has no per-step target to clamp"
         )
-    later = {
-        "remat_policy": config.remat_policy is not None,
-        "unroll": config.unroll != 1,
-    }
-    for name, used in later.items():
-        if used:
-            raise NotImplementedError(f"{name} {_LATER}")
+    unroll = config.unroll
+    if not isinstance(unroll, bool) and (not isinstance(unroll, int) or unroll < 1):
+        raise ValueError(f"unroll must be an int >= 1 or a bool, got {unroll!r}")
 
 
 def _bind_net_u(problem: PDEProblem, net, config: SolverConfig,
@@ -274,6 +278,8 @@ def make_loss_fn(
         weights of the whole batch, whose normalization is global).
     """
     _check_config(problem, config)
+    # JAX reads the policy only under remat; an unsupported name raises here
+    save_rule = resolve_policy(config.remat_policy) if config.remat else None
     bind = _bind_net_u(problem, net, config, functional)
     dg = _functional_dg(problem) if functional else None
     local = config.objective == "local"
@@ -409,8 +415,9 @@ def make_loss_fn(
                 # drawn above and bound in), so there is no RNG state to keep for
                 # the recompute (reading it is not allowed while a CUDA graph
                 # captures the training iteration)
+                kw = {} if save_rule is None else {"context_fn": policy_contexts(save_rule)}
                 body = functools.partial(checkpoint, body, use_reentrant=False,
-                                         preserve_rng_state=False)
+                                         preserve_rng_state=False, **kw)
             X, Ytilde, residual, Yn, *zstate = body(ts[n], X, Ytilde, ts[n + 1], dWs[n], *zstate)
             if paths:
                 Xs.append(X)

@@ -1,7 +1,19 @@
-"""Training: optimizer factory, schedules, checkpoints, the trainer, and the
-multi-model programs (replicas, ensembles) and Richardson extrapolation."""
+"""Training: optimizer factory, schedules, checkpoints, diagnostics, the
+trainer, and the multi-model programs (replicas, ensembles) and Richardson
+extrapolation."""
 
-from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dnnpde_tpu_torch.train.checkpoint import (
+    restore_checkpoint,
+    restore_checkpoint_orbax,
+    save_checkpoint,
+    save_checkpoint_orbax,
+)
+from dnnpde_tpu_torch.train.diagnostics import (
+    StepTimer,
+    detect_anomalies,
+    device_memory_stats,
+    profile_trace,
+)
 from dnnpde_tpu_torch.train.ensemble import (
     EnsembleResult,
     train_ensemble,
@@ -34,6 +46,12 @@ __all__ = [
     "two_phase",
     "save_checkpoint",
     "restore_checkpoint",
+    "save_checkpoint_orbax",
+    "restore_checkpoint_orbax",
+    "StepTimer",
+    "detect_anomalies",
+    "device_memory_stats",
+    "profile_trace",
     "Trainer",
     "TrainingPhases",
     "TrainResult",

@@ -46,6 +46,7 @@ from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import default_device
 from dnnpde_tpu_torch.sim.brownian import brownian_increments, time_grid
 from dnnpde_tpu_torch.solver.bsde import SolverConfig, make_loss_fn, make_net_u
+from dnnpde_tpu_torch.train.diagnostics import anomalies_checked
 from dnnpde_tpu_torch.train.optimizers import Optimizer
 from dnnpde_tpu_torch.train.trainer import _assign
 
@@ -296,7 +297,7 @@ class ReplicaProgram:
         if k > self.capacity:
             raise ValueError(f"a chunk of {k} iterations exceeds the capacity {self.capacity}")
         self.idx.zero_()
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or anomalies_checked():
             for _ in range(k):
                 t0 = time.perf_counter()
                 self.iteration()

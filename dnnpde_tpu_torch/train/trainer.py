@@ -40,6 +40,8 @@ counterpart of ``dnnpde_tpu/train/trainer.py``.
   iteration's batch until a data-dependent condition holds, which a CUDA
   graph cannot capture. The choice is made by optimizer type, never by a
   failed capture. ``polish`` runs LBFGS on one frozen batch.
+- Inside ``train.detect_anomalies`` every iteration runs eagerly too: its
+  checks read values back to the host, which a capture forbids.
 
 - ``mesh`` (``parallel.make_mesh`` / ``make_mesh_2d``) shards the paths
   over its "dp" dim: every rank draws the whole batch (increments, X0, a
@@ -89,6 +91,7 @@ from dnnpde_tpu_torch.solver.bsde import (
     make_path_loss_fn,
 )
 from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dnnpde_tpu_torch.train.diagnostics import anomalies_checked
 from dnnpde_tpu_torch.train.optimizers import LBFGS, LearningRate, build_optimizer
 from dnnpde_tpu_torch.train.schedules import TimeStepRefinement
 
@@ -729,7 +732,8 @@ class Trainer:
         chunk.idx.zero_()
         if self.track_best:
             chunk.best_loss.fill_(float("inf"))
-        if self.device.type != "cuda" or isinstance(self._tx, LBFGS) or not self._capturable:
+        if (self.device.type != "cuda" or isinstance(self._tx, LBFGS) or not self._capturable
+                or anomalies_checked()):
             for _ in range(k):
                 self._iteration(chunk)
             return

@@ -110,9 +110,12 @@ def test_path_loss_shapes_and_value():
 def test_later_options_raise():
     prob, net = BlackScholesBarenblatt(D=D), from_flax_params(_case([D + 1, 8, 1])[1], "sine",
                                                                device="cpu")
+    # remat_policy and unroll are ported (test_torch_remat_policy.py): they change no number
+    _, _, ts, dWs, X0 = _case([D + 1, 8, 1])
+    batch = [torch.from_numpy(a) for a in (ts, dWs, X0)]
+    ref = make_loss_fn(prob, net, SolverConfig())(net, *batch).loss
     for cfg in (SolverConfig(remat_policy="dots_saveable"), SolverConfig(unroll=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_loss_fn(prob, net, cfg)
+        assert torch.equal(make_loss_fn(prob, net, cfg)(net, *batch).loss, ref)
     # stochastic nets are ported (test_torch_sdenet.py), but not on the fused path
     make_loss_fn(prob, net, SolverConfig(stochastic_net=True))
     with pytest.raises(ValueError, match="plain MLPs"):

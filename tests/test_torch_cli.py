@@ -216,7 +216,7 @@ def test_cli_export_keeps_the_barrier_transform(tmp_path):
     from dnnpde_tpu_torch.serve import load_solution
 
     sol = load_solution(str(art), device="cpu")
-    assert type(sol.problem).__name__ == "UpAndOutCall"
+    assert sol.record["problem"] == "UpAndOutCall"
     u, _ = sol.u_and_grad(0.0, np.array([[1.0, 1.0], [1.0, 0.0]]))
     assert u[1, 0] == 0.0  # knocked out
     assert np.isfinite(summary["learned_y0"])

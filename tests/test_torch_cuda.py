@@ -388,14 +388,14 @@ def _clamped_bsb():
     return ClampedBSB(D=CHUNK_D)
 
 
-def _chunk_trainer(device, backend, seed=0, remat=False, prob=None, **kw):
+def _chunk_trainer(device, backend, seed=0, remat=False, prob=None, remat_policy=None, **kw):
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig
     from dnnpde_tpu_torch.train import Trainer
 
+    config = SolverConfig(fused_net_u=backend, remat=remat, remat_policy=remat_policy)
     return Trainer(prob or BlackScholesBarenblatt(D=CHUNK_D), M=CHUNK_M, N=CHUNK_N, layers=CHUNK_LAYERS,
-                   seed=seed, device=device, ema_decay=0.9,
-                   solver_config=SolverConfig(fused_net_u=backend, remat=remat), **kw)
+                   seed=seed, device=device, ema_decay=0.9, solver_config=config, **kw)
 
 
 def _eager_steps(tr, k, lr=1e-3):
@@ -802,3 +802,92 @@ def test_executors_run_on_the_card(cuda_device, tmp_path, name):
     assert len(df) >= 1 and df[col].notna().all()
     numeric = df.select_dtypes("number")
     assert np.isfinite(numeric.fillna(0.0).to_numpy()).all()
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable", "everything_saveable",
+                                    "dots_with_no_batch_dims_saveable"])
+@pytest.mark.parametrize("backend", [False, "torch", "cuda"], ids=["autograd", "fused", "k1k2"])
+def test_captured_chunk_under_a_remat_policy_equals_eager_steps(cuda_device, policy, backend):
+    """A remat policy's dispatch modes run inside the captured iteration: the
+    chunk equals as many eager steps bit for bit, and the losses equal those
+    without remat (a policy changes no number; on K1 + K2 it keeps nothing
+    inside the kernels, which are not ATen ops)."""
+    k = 6
+    captured, eager = (_chunk_trainer(cuda_device, backend, remat=True, remat_policy=policy)
+                       for _ in range(2))
+    plain = _chunk_trainer(cuda_device, backend, remat=False)
+    captured.train(k, 1e-3, log_every=k, verbose=False)
+    losses, y0s = _eager_steps(eager, k)
+    got_losses, got_y0s = _last_chunk(captured, k)
+    assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
+    _assert_same_state(captured, eager)
+    plain_losses, _ = _eager_steps(plain, k)
+    assert torch.equal(plain_losses, losses)
+
+
+@pytest.mark.parametrize("case", ["fc", "heston-bs", "sdenet"])
+def test_the_artifact_on_the_card_equals_evaluate_u(cuda_device, tmp_path, case):
+    """A trainer's artifact, exported and loaded onto the card, serves (u, Z)
+    within 1e-6 of max|.| of the trainer's f32 ``evaluate_u`` at batches 1,
+    33 and 1000; and loaded onto the CPU, the same program within 1e-5."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, HestonPDE
+    from dnnpde_tpu_torch.serve import load_solution, save_solution
+    from dnnpde_tpu_torch.train import Trainer
+
+    prob = HestonPDE() if case == "heston-bs" else BlackScholesBarenblatt(D=CHUNK_D)
+    mode = "SDEnet" if case == "sdenet" else "FC"
+    tr = Trainer(prob, M=8, N=4, layers=[prob.dim + 1, 64, 64, 64, 1], mode=mode, seed=3,
+                 device=cuda_device)
+    tr.train(4, 1e-3, log_every=2, verbose=False)
+    path = str(tmp_path / "s.pt2")
+    save_solution(path, tr)
+    on_card, on_cpu = load_solution(path, device=cuda_device), load_solution(path, device="cpu")
+    rng = np.random.default_rng(4)
+    for batch in (1, 33, 1000):
+        t = rng.uniform(size=(batch, 1)).astype(np.float32)
+        X = np.abs(1.0 + 0.3 * rng.normal(size=(batch, prob.dim))).astype(np.float32)
+        if case == "heston-bs":
+            X[:, 1] = rng.uniform(0.05, 0.4, size=batch)
+        u_ref, Z_ref = tr.evaluate_u(t, X)
+        u, Z = on_card.u_and_grad(t, X)
+        u_d, _ = on_card.u_and_grad_device(t, X)
+        assert u_d.device.type == "cuda"
+        for a, r in ((u, u_ref), (Z, Z_ref)):
+            assert a.shape == r.shape and np.abs(a - r).max() <= 1e-6 * np.abs(r).max()
+        for a, r in zip(on_cpu.u_and_grad(t, X), (u, Z)):
+            assert np.abs(a - r).max() <= 1e-5 * np.abs(r).max()
+
+
+def test_profile_trace_holds_every_kernel_of_the_block(cuda_device, tmp_path):
+    """Five traces in a row, each of a fresh K1 + K2 trainer's first
+    iterations (an eager warm-up, the capture, replays): each trace file
+    holds its lead-in and every K1 and K2 kernel the block ran, and the
+    marker kernel launched last."""
+    import json
+    import re
+
+    from dnnpde_tpu_torch.train import profile_trace
+
+    k = 4
+    want = {"mlp_u_z_fwd_kernel": (CHUNK_N + 1) * k, "mlp_u_z_bwd_rows": (CHUNK_N + 1) * k,
+            "mlp_u_z_bwd_wgrad": (CHUNK_N + 1) * k}
+    for i in range(5):
+        tr = _chunk_trainer(cuda_device, "cuda", seed=i)
+        with profile_trace(str(tmp_path / str(i))):
+            tr.train(k, 1e-3, log_every=k, verbose=False)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)  # the marker, after every kernel of the block
+        (path,) = (tmp_path / str(i)).glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        runs, last, spins = dict.fromkeys(want, 0), 0.0, []
+        for e in events:
+            if e.get("cat") == "kernel":
+                m = re.search(r"mlp_u_z_\w+", e["name"])
+                if m and m.group(0) in runs:
+                    runs[m.group(0)] += 1
+                    last = max(last, float(e["ts"]))
+                if "spin_kernel" in e["name"]:
+                    spins.append(float(e["ts"]))
+        assert runs == want, (i, runs)
+        assert sum(ts > last for ts in spins) == 1
+        assert any(e.get("name") == "profile_trace lead-in" for e in events)

@@ -3,8 +3,8 @@
 (``tests/torch_parallel_workers.py``) and not the port's scripts ``scripts/time_tree.py``,
 ``scripts/k4_anatomy.py``, ``scripts/anneal_20k.py``,
 ``scripts/stopping_rows.py``, ``scripts/path_rows.py``,
-``scripts/cli_seeds.py``, ``scripts/surface_rows.py`` and
-``scripts/replica_rows.py`` imports JAX, Flax,
+``scripts/cli_seeds.py``, ``scripts/surface_rows.py``,
+``scripts/replica_rows.py`` and ``scripts/trace_probe.py`` imports JAX, Flax,
 Optax or the JAX package, no module of the port imports matplotlib (nor,
 the experiments and reports, pandas) at import time; and its entry points
 never fall back to the CPU on their own.
@@ -30,7 +30,7 @@ def _port_sources() -> list[Path]:
     return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_workers.py"] + [
         ROOT / "scripts" / f"{s}.py"
         for s in ("time_tree", "k4_anatomy", "anneal_20k", "stopping_rows", "path_rows",
-                  "cli_seeds", "surface_rows", "replica_rows")]
+                  "cli_seeds", "surface_rows", "replica_rows", "trace_probe")]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -67,9 +67,10 @@ def test_port_sources_found():
         "evals/sensitivity", "evals/correlation_analysis", "numerics/moments",
         "numerics/fft_pricer", "numerics/variance_gamma", "numerics/calibration",
         "sim/mlmc", "parallel/__init__", "parallel/distributed", "parallel/mesh",
-        "parallel/model_sharding", "parallel/shard_map_step")} <= names
+        "parallel/model_sharding", "parallel/shard_map_step", "compat", "train/diagnostics",
+        "solver/remat")} <= names
     assert {"scripts/stopping_rows.py", "scripts/path_rows.py",
-            "scripts/surface_rows.py", "scripts/replica_rows.py"} <= names
+            "scripts/surface_rows.py", "scripts/replica_rows.py", "scripts/trace_probe.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -429,3 +430,61 @@ def test_parallel_slice_entry_points_without_cuda_raise(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_last_slice_entry_points_without_cuda_raise(no_cuda, tmp_path):
+    """The composition API, the diagnostics and the serving artifact resolve
+    ``device=None`` to the card and raise without one; the kernel cache and
+    the orbax-style checkpoints touch no device."""
+    import numpy as np
+
+    from dnnpde_tpu_torch.compat import EulerMaruyamaScheme
+    from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.runtime import enable_compilation_cache
+    from dnnpde_tpu_torch.serve import export_solution, load_solution
+    from dnnpde_tpu_torch.train import (
+        device_memory_stats,
+        restore_checkpoint_orbax,
+        save_checkpoint_orbax,
+    )
+
+    path = tmp_path / "s.pt2"
+    path.write_bytes(export_solution(MLP([3, 8, 1], device="cpu"), 2))
+    calls = [
+        lambda: EulerMaruyamaScheme(np.ones((1, 2)), 1.0, 4, 2, 2),
+        lambda: device_memory_stats(),
+        lambda: load_solution(str(path)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert load_solution(str(path), device="cpu").dim == 2
+    save_checkpoint_orbax(str(tmp_path / "ck"), {"w": torch.ones(2)})
+    assert torch.equal(restore_checkpoint_orbax(str(tmp_path / "ck"))["w"], torch.ones(2))
+    from dnnpde_tpu_torch.ops import _build
+
+    saved = _build.BUILD_DIR
+    try:
+        assert enable_compilation_cache(str(tmp_path / "k")) == str((tmp_path / "k").resolve())
+        assert _build.BUILD_DIR == (tmp_path / "k").resolve() and _build.BUILD_DIR.is_dir()
+    finally:
+        _build.BUILD_DIR = saved
+
+
+def test_compilation_cache_from_env_moves_the_kernel_builds(tmp_path, monkeypatch):
+    """``DNNPDE_COMPILATION_CACHE`` (honored by the CLI) points the kernels'
+    build directory there, the last call winning, as JAX's cache directory;
+    unset, nothing moves."""
+    from dnnpde_tpu_torch.ops import _build
+    from dnnpde_tpu_torch.runtime import maybe_enable_compilation_cache_from_env
+
+    saved = _build.BUILD_DIR
+    try:
+        monkeypatch.delenv("DNNPDE_COMPILATION_CACHE", raising=False)
+        assert maybe_enable_compilation_cache_from_env() is None and _build.BUILD_DIR == saved
+        for name in ("a", "b"):
+            monkeypatch.setenv("DNNPDE_COMPILATION_CACHE", str(tmp_path / name))
+            assert maybe_enable_compilation_cache_from_env() == str(tmp_path / name)
+            assert _build._target("mlp_u_z_fwd").parent == tmp_path / name
+    finally:
+        _build.BUILD_DIR = saved

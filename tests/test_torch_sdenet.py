@@ -209,7 +209,7 @@ def test_eval_paths_and_serving_are_deterministic(tmp_path):
     assert torch.equal(state, tr.generator.get_state())
     save_solution(str(tmp_path / "sde.pt"), tr)
     sol = load_solution(str(tmp_path / "sde.pt"), device="cpu")
-    assert isinstance(sol.net, SDENet)
+    assert sol.record["mode"] == "SDEnet"
     us, zs = sol.u_and_grad(tz, X)
     _close(us, u1, 1e-5)
     _close(zs, z1, 1e-5)

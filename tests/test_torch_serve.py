@@ -60,12 +60,15 @@ def test_save_load_roundtrip(tmp_path):
     save_solution(str(path), port, D)
     sol = load_solution(str(path), device="cpu")
     assert isinstance(sol, ServedSolution)
-    assert sol.dim == D and sol.layers == tuple(LAYERS) and sol.activation == "sine"
-    assert sol.device == torch.device("cpu")
-    for k, (W, b) in enumerate(zip(sol.Ws, sol.bs)):
+    assert sol.dim == D and sol.device == torch.device("cpu")
+    assert sol.record == {"dim": D, "mode": "FC", "layers": LAYERS, "activation": "sine",
+                          "problem": None}
+    # the weights are baked into the program: (weight, bias) per layer, in order
+    baked = sol.program.state_dict
+    for k in range(len(LAYERS) - 1):
         inner = params["params"][f"Dense_{k}"]["Dense_0"]
-        np.testing.assert_array_equal(W.numpy(), np.asarray(inner["kernel"]))
-        np.testing.assert_array_equal(b.numpy(), np.asarray(inner["bias"]))
+        np.testing.assert_array_equal(baked[f"w{2 * k}"].numpy().T, np.asarray(inner["kernel"]))
+        np.testing.assert_array_equal(baked[f"w{2 * k + 1}"].numpy(), np.asarray(inner["bias"]))
 
 
 @pytest.mark.parametrize("batch", [1, 3, 17])
@@ -123,13 +126,25 @@ def test_scalar_time_surface_and_device_path(tmp_path):
 
 def test_what_is_not_ported_raises(tmp_path):
     from dnnpde_tpu_torch.nets import MLP
+    from dnnpde_tpu_torch.solver import make_net_u
 
     net = MLP(LAYERS, "sine", device="cpu")
-    # every net of the zoo is served (SDENet: test_torch_sdenet.py); another module is not
-    with pytest.raises(NotImplementedError, match="cannot serve a Linear"):
-        save_solution(str(tmp_path / "a.pt"), torch.nn.Linear(D + 1, 1), D)
+    # the artifact is self-contained, so any module of [t, X] to u is served,
+    # as make_net_u evaluates it; a net of other widths is not
+    linear = torch.nn.Linear(D + 1, 1)
+    save_solution(str(tmp_path / "a.pt"), linear, D)
+    sol = load_solution(str(tmp_path / "a.pt"), device="cpu")
+    assert sol.record["mode"] == "Linear" and sol.record["layers"] is None
+    t, X = _request(5)
+    u, Z = sol.u_and_grad(t, X)
+    with torch.no_grad():
+        u_ref, Z_ref = make_net_u(linear)(torch.from_numpy(t), torch.from_numpy(X))
+    np.testing.assert_array_equal(u, u_ref.numpy())
+    np.testing.assert_array_equal(Z, Z_ref.numpy())
     with pytest.raises(ValueError, match="do not map"):
         save_solution(str(tmp_path / "a.pt"), net, D + 1)
+    with pytest.raises(ValueError, match="does not map"):
+        save_solution(str(tmp_path / "a.pt"), torch.nn.Linear(D + 1, 2), D)
 
 
 def test_bsb_slice_end_to_end(tmp_path):
@@ -197,7 +212,8 @@ def test_transforms_and_residual_nets_match_jax_served(tmp_path, case):
     save_solution(str(path), port, prob.dim,
                   transform=prob.transform_u if prob.has_output_transform else None)
     sol = load_solution(str(path), device="cpu")
-    assert sol.mode == mode and (sol.problem == prob) == prob.has_output_transform
+    assert sol.record["mode"] == mode
+    assert (sol.record["problem"] == cls) == prob.has_output_transform
     rng = np.random.default_rng(5)
     t = rng.uniform(size=(33, 1)).astype(np.float32)
     t[:3] = 1.0  # the heads' terminal values
@@ -232,6 +248,173 @@ def test_save_solution_from_a_trainer_and_its_ema(tmp_path):
         np.testing.assert_array_equal(Z, Z_ref.numpy())
     assert not np.array_equal(*(load_solution(str(tmp_path / f"t{e}.pt"), device="cpu")
                                 .u(t, X) for e in (False, True)))
-    with pytest.raises(ValueError, match="transform_u"):
-        save_solution(str(tmp_path / "b.pt"), tr.params, 2, transform=lambda t, x, u: u)
+    # any transform is baked into the program, not only a problem's transform_u
+    def square(t, x, u):
+        return u * u + x[:, :1]
 
+    save_solution(str(tmp_path / "b.pt"), tr.params, 2, transform=square)
+    sol = load_solution(str(tmp_path / "b.pt"), device="cpu")
+    assert sol.record["problem"] is None
+    u, Z = sol.u_and_grad(t, X)
+    with torch.no_grad():
+        u_ref, Z_ref = make_net_u(tr.params, square)(torch.from_numpy(t), torch.from_numpy(X))
+    np.testing.assert_array_equal(u, u_ref.numpy())
+    np.testing.assert_array_equal(Z, Z_ref.numpy())
+
+
+
+@pytest.mark.parametrize("case", list(SERVED_CASES))
+def test_the_artifact_serves_any_batch_like_jax(tmp_path, case):
+    """One exported program per case (every net and output transform of
+    ``test_transforms_and_residual_nets_match_jax_served``) serves batches
+    of 1, 7 and 333 through the dynamic batch dimension, each within 1e-5
+    of max|·| of the JAX artifact's (u, Z), and bit for bit the port's
+    eager f32 ``make_net_u``.
+
+    One column is held to 3e-5 instead: ∂u/∂v of the "bs" head, which is
+    ill-conditioned at small variance. At (t, S, v) = (0.425, 1.544, 0.0162)
+    the two f32 evaluations part by 1.7e-5 of max|Z|, on either side of the
+    float64 value (JAX 9.6e-6 off it, the port 7.1e-6)."""
+    import dnnpde_tpu.pde as jax_pde
+
+    import dnnpde_tpu_torch.pde as pde
+    from dnnpde_tpu_torch.solver import make_net_u
+
+    mode, act, cls, kw = SERVED_CASES[case]
+    jprob, prob = getattr(jax_pde, cls)(**kw), getattr(pde, cls)(**kw)
+    layers = [prob.dim + 1, 16, 16, 16, 1]
+    net = jax_build_network(mode, layers, act)
+    params = net.init(jax.random.PRNGKey(6), jnp.ones((1, layers[0])))
+    transform = jprob.transform_u if jprob.has_output_transform else None
+    jax_sol = JaxServed(jax.export.deserialize(
+        export_solution(net, params, prob.dim, transform=transform)))
+    port = from_flax_params(jax.tree.map(np.asarray, params), act, mode=mode, device="cpu")
+    transform_u = prob.transform_u if prob.has_output_transform else None
+    save_solution(str(tmp_path / "s.pt2"), port, prob.dim, transform=transform_u)
+    sol = load_solution(str(tmp_path / "s.pt2"), device="cpu")
+    rng = np.random.default_rng(8)
+    for batch in (1, 7, 333):
+        t = rng.uniform(size=(batch, 1)).astype(np.float32)
+        X = np.abs(1.0 + 0.3 * rng.normal(size=(batch, prob.dim))).astype(np.float32)
+        if cls == "HestonPDE":
+            X[:, 1] = rng.uniform(0.01, 0.4, size=batch)
+        u_ref, Z_ref = jax_sol.u_and_grad(t, X)
+        u, Z = sol.u_and_grad(t, X)
+        assert u.shape == (batch, 1) and Z.shape == (batch, prob.dim)
+        with torch.no_grad():
+            u_eager, Z_eager = make_net_u(port, transform_u)(torch.from_numpy(t),
+                                                             torch.from_numpy(X))
+        np.testing.assert_array_equal(u, u_eager.numpy())
+        np.testing.assert_array_equal(Z, Z_eager.numpy())
+        assert np.abs(u - u_ref).max() <= 1e-5 * np.abs(u_ref).max()
+        tol = np.full(prob.dim, 1e-5)
+        if case == "heston-bs":
+            tol[1] = 3e-5
+        assert (np.abs(Z - Z_ref).max(axis=0) <= tol * np.abs(Z_ref).max()).all()
+
+
+def test_the_artifact_serves_sdenet_under_its_fixed_noise(tmp_path):
+    """An SDENet's program computes the fixed evaluation noise for the batch
+    it is given: (u, Z) equal the net's eval path at batches 1, 7 and 333."""
+    from dnnpde_tpu_torch.nets import build_network
+    from dnnpde_tpu_torch.solver import make_net_u
+
+    net = build_network("SDEnet", [D + 1, 16, 16, 16, 1], "sine", device="cpu",
+                        generator=torch.Generator().manual_seed(2))
+    save_solution(str(tmp_path / "sde.pt2"), net, D, stochastic=True)
+    sol = load_solution(str(tmp_path / "sde.pt2"), device="cpu")
+    assert sol.record["mode"] == "SDEnet"
+    for batch in (1, 7, 333):
+        t, X = _request(batch, seed=batch)
+        u, Z = sol.u_and_grad(t, X)
+        with torch.no_grad():
+            u_ref, Z_ref = make_net_u(net)(torch.from_numpy(t), torch.from_numpy(X))
+        np.testing.assert_allclose(u, u_ref.numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(Z, Z_ref.numpy(), rtol=1e-6, atol=1e-7)
+    # the noise's and eye's device is burnt into the graph at export: loaded
+    # onto another device, the program runs there whole
+    on_meta = load_solution(str(tmp_path / "sde.pt2"), device="meta")
+    u, Z = on_meta.u_and_grad_device(torch.zeros(5, 1, device="meta"),
+                                     torch.zeros(5, D, device="meta"))
+    assert u.device.type == Z.device.type == "meta" and Z.shape == (5, D)
+
+
+def test_a_fresh_process_serves_without_the_model_code(tmp_path):
+    """A new interpreter loads the artifact and serves it, importing none of
+    the port's nets, problems or solver (nor JAX): the program is
+    self-contained. Its (u, Z) equal this process's."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from dnnpde_tpu_torch.pde import HestonPDE
+    from dnnpde_tpu_torch.train import Trainer
+
+    tr = Trainer(HestonPDE(), M=8, N=4, layers=[3, 16, 16, 1], mode="Naisnet", device="cpu")
+    path = tmp_path / "heston.pt2"
+    save_solution(str(path), tr)
+    t, X = np.array([[0.0], [0.5]], np.float32), np.array([[1.0, 0.2], [0.9, 0.1]], np.float32)
+    np.save(tmp_path / "t.npy", t)
+    np.save(tmp_path / "X.npy", X)
+    code = (
+        "import sys, numpy as np\n"
+        "from dnnpde_tpu_torch.serve import load_solution\n"
+        "sol = load_solution(sys.argv[1], device='cpu')\n"
+        "u, Z = sol.u_and_grad(np.load(sys.argv[2]), np.load(sys.argv[3]))\n"
+        "np.save(sys.argv[4], np.concatenate([u, Z], axis=1))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'dnnpde_tpu') or\n"
+        "             m.startswith(('dnnpde_tpu_torch.nets', 'dnnpde_tpu_torch.pde',\n"
+        "                           'dnnpde_tpu_torch.solver')))\n"
+        "print(bad)\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code, str(path), str(tmp_path / "t.npy"),
+                          str(tmp_path / "X.npy"), str(tmp_path / "uz.npy")], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    u, Z = load_solution(str(path), device="cpu").u_and_grad(t, X)
+    np.testing.assert_array_equal(np.load(tmp_path / "uz.npy"), np.concatenate([u, Z], axis=1))
+
+
+def test_loading_refuses_pickled_entries(tmp_path):
+    """``torch.export.load`` unpickles an entry marked ``use_pickle`` (and
+    retries a rejected ``.pt`` member without ``weights_only``): an archive
+    with either is refused before it is read."""
+    import io
+    import json
+    import zipfile
+
+    from dnnpde_tpu_torch.nets import MLP
+
+    good = tmp_path / "good.pt2"
+    save_solution(str(good), MLP(LAYERS, "sine", device="cpu"), D)
+    names = zipfile.ZipFile(good).namelist()
+
+    def rewrite(dst, edit):
+        with zipfile.ZipFile(good) as src, zipfile.ZipFile(dst, "w") as out:
+            for n in names:
+                out.writestr(n, edit(n, src.read(n)))
+
+    def mark_pickled(n, data):
+        if n.endswith("weights_config.json"):
+            cfg = json.loads(data)
+            next(iter(cfg["config"].values()))["use_pickle"] = True
+            return json.dumps(cfg)
+        return data
+
+    def pickled_inputs(n, data):
+        if n.endswith(".pt"):  # a module: weights_only=True refuses it
+            buf = io.BytesIO()
+            torch.save(torch.nn.Linear(1, 1), buf)
+            return buf.getvalue()
+        return data
+
+    for name, edit in (("a.pt2", mark_pickled), ("b.pt2", pickled_inputs)):
+        rewrite(tmp_path / name, edit)
+        with pytest.raises(ValueError, match="not loaded"):
+            load_solution(str(tmp_path / name), device="cpu")
+    with pytest.raises(ValueError, match="not a solution artifact"):
+        torch.save({"w": torch.ones(1)}, str(tmp_path / "c.pt"))
+        load_solution(str(tmp_path / "c.pt"), device="cpu")
+    assert load_solution(str(good), device="cpu").dim == D
