@@ -1,0 +1,7 @@
+"""% of the traced window in which no operation ran on the card."""
+
+from benchmark.core.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
