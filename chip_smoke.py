@@ -315,24 +315,23 @@ def _compare(name: str, a: torch.Tensor, ref: torch.Tensor,
     return err
 
 
-def _counted_kernels():
-    """The four kernel wrappers, whose ``launches`` count their launches."""
-    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
-    from dnnpde_tpu_torch.ops.path_kernel import gbm_terminal
-    from dnnpde_tpu_torch.ops.rollout_kernel import rollout_paths
-
-    return (mlp_u_z_fwd, mlp_u_z_bwd, rollout_paths, gbm_terminal)
+# the four kernel wrappers, whose calls ``tracing`` counts as ``ops.<name>.calls``
+COUNTED_KERNELS = ("mlp_u_z_fwd", "mlp_u_z_bwd", "rollout_paths", "gbm_terminal")
 
 
 def zero_counts() -> None:
-    """Set every kernel's launch count to 0, just before a path runs."""
-    for k in _counted_kernels():
-        k.launches = 0
+    """Set every counter to 0, just before a path runs."""
+    from dnnpde_tpu_torch import tracing
+
+    tracing.clear()
 
 
 def read_counts() -> dict:
     """Every kernel's launch count, just after a path ran."""
-    return {k.__name__: k.launches for k in _counted_kernels()}
+    from dnnpde_tpu_torch import tracing
+
+    counts = tracing.counters()
+    return {k: counts.get(f"ops.{k}.calls", 0) for k in COUNTED_KERNELS}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:

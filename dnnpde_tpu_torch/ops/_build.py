@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from dnnpde_tpu_torch import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dnnpde_kernels"
 NVCC_FLAGS = (
@@ -69,6 +71,7 @@ def _finish(name: str, started) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    tracing.count("ops.nvcc_builds")
 
 
 def build_all() -> None:
@@ -76,7 +79,8 @@ def build_all() -> None:
     started = {p.stem: _start(p.stem) for p in sorted(CSRC.glob("*.cu"))}
     for n, s in started.items():
         if s is not None:
-            _finish(n, s)
+            with tracing.span("dnnpde.ops.build", kernel=n):  # the wait for its nvcc
+                _finish(n, s)
 
 
 @functools.cache
@@ -84,7 +88,8 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built first if needed."""
     started = _start(name)
     if started is not None:
-        _finish(name, started)
+        with tracing.span("dnnpde.ops.build", kernel=name):
+            _finish(name, started)
     lib = ctypes.CDLL(str(_target(name)))
     lib.dnnpde_error_string.argtypes = [ctypes.c_int]
     lib.dnnpde_error_string.restype = ctypes.c_char_p

@@ -28,6 +28,8 @@ from typing import Sequence
 
 import torch
 
+from dnnpde_tpu_torch import tracing
+
 Tensor = torch.Tensor
 
 MAX_LAYERS = 8  # DNNPDE_MAX_LAYERS in csrc/common.cuh
@@ -129,11 +131,8 @@ def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
             _build.int_array(widths), len(Ws), B, stream,
         )
     _build.check(lib, code, "mlp_u_z_fwd")
-    mlp_u_z_fwd.launches += 1
+    tracing.count("ops.mlp_u_z_fwd.calls")
     return u, z
-
-
-mlp_u_z_fwd.launches = 0
 
 
 def mlp_u_z_bwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
@@ -216,8 +215,5 @@ def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
             widths_c, len(Ws), B, stream,
         )
     _build.check(lib, code, "mlp_u_z_bwd")
-    mlp_u_z_bwd.launches += 1
+    tracing.count("ops.mlp_u_z_bwd.calls")
     return tuple(grads[:len(Ws)]), tuple(grads[len(Ws):]), x_bar
-
-
-mlp_u_z_bwd.launches = 0

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.numerics.monte_carlo import basket_call_payoff
 from dnnpde_tpu_torch.ops.rollout_kernel import _TWO_PI_F32, _seed_key, philox4x32_10
 from dnnpde_tpu_torch.runtime import device_of
@@ -167,11 +168,8 @@ def gbm_terminal(
             out.data_ptr(), M, D, N, int(seed) & 0xFFFFFFFFFFFFFFFF, stream,
         )
     _build.check(lib, code, "gbm_terminal")
-    gbm_terminal.launches += 1
+    tracing.count("ops.gbm_terminal.calls")
     return out
-
-
-gbm_terminal.launches = 0
 
 
 def fused_basket_call_mc(

@@ -22,11 +22,13 @@ against its plain version.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.ops.mlp_kernel import bf16_dot, check_mlp
 from dnnpde_tpu_torch.pde.problems import (
     BasketCallOption,
@@ -186,11 +188,8 @@ def rollout_paths(
             int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(dWs is None), stream,
         )
     _build.check(lib, code, "rollout_paths")
-    rollout_paths.launches += 1
+    tracing.count("ops.rollout_paths.calls")
     return Y
-
-
-rollout_paths.launches = 0
 
 
 def gbm_coefficients(problem) -> tuple[float, float] | None:
@@ -214,21 +213,27 @@ def predict_paths_fast(trainer, M: int, seed: int = 0) -> Tensor:
     an output transform, correlated increments."""
     from dnnpde_tpu_torch.params import extract_mlp_params
 
-    problem = trainer.problem
-    coefs = gbm_coefficients(problem)
-    if coefs is None:
-        raise ValueError(f"{problem.name}: dynamics are not GBM-type")
-    if trainer.mode.lower() != "fc" or str(trainer.activation).lower() != "sine":
-        raise ValueError("fast rollout supports the FC-sine network only")
-    if problem.has_output_transform:
-        raise ValueError("fast rollout does not apply output transforms")
-    if trainer.chol is not None:
-        raise ValueError("fast rollout does not correlate increments")
-    with torch.no_grad():
-        Ws, bs = extract_mlp_params(trainer.params)
-        mu_c, sig_c = coefs
-        return rollout_paths(
-            list(Ws), list(bs), problem.x0.to(Ws[0].device),
-            N=trainer.N, dt=problem.T / trainer.N, mu_c=mu_c, sig_c=sig_c,
-            seed=seed, M=M,
-        )
+    with tracing.span("dnnpde.rollout.request", request=next(_requests), M=M), torch.no_grad():
+        with tracing.span("dnnpde.rollout.prepare"):
+            problem = trainer.problem
+            coefs = gbm_coefficients(problem)
+            if coefs is None:
+                raise ValueError(f"{problem.name}: dynamics are not GBM-type")
+            if trainer.mode.lower() != "fc" or str(trainer.activation).lower() != "sine":
+                raise ValueError("fast rollout supports the FC-sine network only")
+            if problem.has_output_transform:
+                raise ValueError("fast rollout does not apply output transforms")
+            if trainer.chol is not None:
+                raise ValueError("fast rollout does not correlate increments")
+            Ws, bs = extract_mlp_params(trainer.params)
+            mu_c, sig_c = coefs
+            x0 = problem.x0.to(Ws[0].device)
+        with tracing.span("dnnpde.rollout.launch"):
+            return rollout_paths(
+                list(Ws), list(bs), x0, N=trainer.N, dt=problem.T / trainer.N,
+                mu_c=mu_c, sig_c=sig_c, seed=seed, M=M,
+            )
+
+
+# the number of the next predict_paths_fast request, kept with its spans
+_requests = itertools.count()

@@ -19,8 +19,7 @@ loss, gradient and gather reductions as ``torch.distributed`` collectives.
 :func:`launch` starts n ranks of one command on this host, rendezvousing
 over a file store (``store=``) or a free loopback port: the CLI's ``--dp``
 and the tests use it. Every collective of the port goes through
-:func:`all_reduce`, whose ``calls`` attribute counts what was posted, as the
-kernel wrappers count their launches.
+:func:`all_reduce`, whose ``calls`` attribute counts what was posted.
 """
 
 from __future__ import annotations

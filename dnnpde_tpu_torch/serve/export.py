@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import io
+import itertools
 import json
 import zipfile
 from typing import Any
@@ -33,6 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.runtime import default_device
 
 Tensor = torch.Tensor
@@ -79,6 +81,11 @@ def export_solution(net: torch.nn.Module, dim: int, transform=None,
     ``(t, X, raw) → u`` (pass ``problem.transform_u``), or None.
     ``stochastic`` is accepted for the JAX signature: an ``SDENet`` is always
     served under its fixed evaluation noise."""
+    with tracing.span("dnnpde.serve.export"):
+        return _export(net, dim, transform)
+
+
+def _export(net: torch.nn.Module, dim: int, transform) -> bytes:
     from torch.fx.experimental.proxy_tensor import make_fx
 
     layers = getattr(net, "layers", None)
@@ -148,6 +155,9 @@ class ServedSolution:
     program: torch.export.ExportedProgram
     record: dict
     device: torch.device
+    # the number of the next request, kept with its spans
+    _requests: itertools.count = dataclasses.field(default_factory=itertools.count,
+                                                   init=False, repr=False, compare=False)
 
     @property
     def dim(self) -> int:
@@ -162,6 +172,10 @@ class ServedSolution:
         against the program's symbolic constraints and flatten its inputs
         first, which doubles the host time of a request;
         ``u_and_grad_device`` shapes the request itself."""
+        with tracing.span("dnnpde.serve.fold"):
+            return self._fold()
+
+    def _fold(self):
         from torch.export.graph_signature import InputKind
 
         program = self.program
@@ -219,11 +233,14 @@ class ServedSolution:
 
     def u_and_grad_device(self, t, X) -> tuple[Tensor, Tensor]:
         """(u, Z) as tensors on the device, without a host sync."""
-        X, t = self._input(X, self.dim), self._input(t, 1)
-        if t.shape[0] != X.shape[0]:
-            t = t.expand(X.shape[0], 1).contiguous()
-        with torch.no_grad():
-            return self._call(t, X)
+        rows = (X.numel() if isinstance(X, Tensor) else np.size(X)) // self.dim
+        with tracing.span("dnnpde.serve.request", request=next(self._requests), rows=rows):
+            with tracing.span("dnnpde.serve.inputs"):
+                X, t = self._input(X, self.dim), self._input(t, 1)
+                if t.shape[0] != X.shape[0]:
+                    t = t.expand(X.shape[0], 1).contiguous()
+            with tracing.span("dnnpde.serve.graph"), torch.no_grad():
+                return self._call(t, X)
 
     def u(self, t, X) -> np.ndarray:
         return self.u_and_grad(t, X)[0]
@@ -284,10 +301,12 @@ def load_solution(path: str, device=None) -> ServedSolution:
     (None: the first CUDA card)."""
     from torch.export.passes import move_to_device_pass
 
-    device = default_device(device)
-    with open(path, "rb") as f:
-        blob = f.read()
-    _check_archive(blob)
-    extra = {_RECORD: ""}
-    program = move_to_device_pass(torch.export.load(io.BytesIO(blob), extra_files=extra), device)
-    return ServedSolution(program, json.loads(extra[_RECORD]), device)
+    with tracing.span("dnnpde.serve.load"):
+        device = default_device(device)
+        with open(path, "rb") as f:
+            blob = f.read()
+        _check_archive(blob)
+        extra = {_RECORD: ""}
+        program = move_to_device_pass(torch.export.load(io.BytesIO(blob), extra_files=extra),
+                                      device)
+        return ServedSolution(program, json.loads(extra[_RECORD]), device)

@@ -6,7 +6,8 @@
   ``jax_debug_nans`` / ``jax_debug_infs``).
 - :class:`StepTimer`: cumulative wall-clock logs.
 - :func:`profile_trace`: a ``torch.profiler`` trace that TensorBoard and
-  Perfetto read.
+  Perfetto read (``dnnpde_tpu_torch.tracing``, with its lead-in, whose
+  constants are re-exported here).
 - :func:`device_memory_stats`: live and peak device memory.
 """
 
@@ -20,6 +21,13 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 
 from dnnpde_tpu_torch.runtime import default_device
+from dnnpde_tpu_torch.tracing import (  # noqa: F401  re-exported
+    LEAD_IN_KERNELS,
+    LEAD_IN_SPIN_CYCLES,
+    TAIL_S,
+    lead_in,
+    profile_trace,
+)
 
 aten = torch.ops.aten
 
@@ -67,51 +75,6 @@ def detect_anomalies(nans: bool = True, infs: bool = True) -> Iterator[None]:
     iteration eagerly, never a captured chunk."""
     with _FiniteCheck(nans, infs):
         yield
-
-
-# CUPTI can drop the device records of the first few milliseconds of device
-# work after a trace starts (up to 67 small kernels, or 4 of K1's launches in
-# a replayed graph, on an H100: PERF.md §6): the lead-in takes that place
-LEAD_IN_KERNELS = 256
-LEAD_IN_SPIN_CYCLES = 20_000_000  # ~10 ms at 1.98 GHz
-# the profiler drops device work that ends after its window closes on the
-# host's clock, and the device's stamps converted to that clock can put the
-# last kernels past a stop that follows a synchronize at once
-TAIL_S = 0.2
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str, host_tracer_level: int = 2) -> Iterator[None]:
-    """Trace the block with ``torch.profiler`` (the host, and the CUDA
-    device when there is one) and write a Chrome-trace JSON file into
-    ``log_dir`` (``*.pt.trace.json``) that TensorBoard's profiler plugin and
-    Perfetto read. ``host_tracer_level``: 0 records the device's activity
-    only (the host's where there is no CUDA device), 1 or 2 also the host's
-    ops, 3 also their shapes and Python stacks. On a CUDA device the trace
-    opens with a lead-in, ``profile_trace lead-in``: small kernels and a
-    ~10 ms spin, run before the block, since the first device records of a
-    trace can be lost; and it closes after the device has finished the
-    block's work and a further 0.2 s, so that the trace holds all of it."""
-    from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
-
-    cuda = torch.cuda.is_available()
-    activities = [ProfilerActivity.CPU] if host_tracer_level > 0 or not cuda else []
-    if cuda:
-        activities.append(ProfilerActivity.CUDA)
-    verbose = host_tracer_level >= 3
-    with profile(activities=activities, record_shapes=verbose, with_stack=verbose,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        if cuda:
-            with record_function("profile_trace lead-in"):
-                x = torch.zeros(1, device=torch.cuda.current_device())
-                for _ in range(LEAD_IN_KERNELS):
-                    x.add_(1.0)
-                torch.cuda._sleep(LEAD_IN_SPIN_CYCLES)
-                torch.cuda.synchronize()
-        yield
-        if cuda:
-            torch.cuda.synchronize()
-            time.sleep(TAIL_S)
 
 
 class StepTimer:

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.nets import build_network
 from dnnpde_tpu_torch.parallel import model_sharding
 from dnnpde_tpu_torch.parallel.distributed import all_reduce
@@ -710,7 +711,7 @@ class Trainer:
             chunk = self._chunk_cache[sig] = _Chunk(self, N, k)
         return chunk
 
-    def _capture(self, chunk: _Chunk) -> None:
+    def _capture(self, chunk: _Chunk, it: int) -> None:
         """Capture one iteration of ``chunk`` into a CUDA graph on a side
         stream. The trainer's generator is registered with the graph, so each
         replay draws what the next eager call would draw. A capture that
@@ -718,7 +719,8 @@ class Trainer:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream):
+            with tracing.span("dnnpde.train.capture", it=it), \
+                    torch.cuda.graph(graph, stream=self._side_stream):
                 self._iteration(chunk)
         except RuntimeError as e:
             raise RuntimeError(
@@ -726,16 +728,20 @@ class Trainer:
                 "must run on the device without host reads or synchronization"
             ) from e
         chunk.graph = graph
+        tracing.count("train.graph_captures")
 
-    def _run_chunk(self, chunk: _Chunk, k: int) -> None:
-        """Run k iterations of ``chunk`` (replays on a CUDA device)."""
+    def _run_chunk(self, chunk: _Chunk, k: int, it: int) -> None:
+        """Run k iterations of ``chunk``, the first numbered ``it`` (replays
+        on a CUDA device)."""
         chunk.idx.zero_()
         if self.track_best:
             chunk.best_loss.fill_(float("inf"))
         if (self.device.type != "cuda" or isinstance(self._tx, LBFGS) or not self._capturable
                 or anomalies_checked()):
-            for _ in range(k):
-                self._iteration(chunk)
+            with tracing.span("dnnpde.train.eager", iterations=k):
+                for _ in range(k):
+                    self._iteration(chunk)
+            tracing.count("train.eager_iterations", k)
             return
         done = 0
         with torch.cuda.device(self.device):
@@ -744,16 +750,21 @@ class Trainer:
                     self._side_stream = torch.cuda.Stream(self.device)
                 main = torch.cuda.current_stream(self.device)
                 if not chunk.warm:  # the warm-up: a real iteration, eager, on the side stream
-                    self._side_stream.wait_stream(main)
-                    with torch.cuda.stream(self._side_stream):
-                        self._iteration(chunk)
-                    main.wait_stream(self._side_stream)
+                    with tracing.span("dnnpde.train.warm_up", it=it):
+                        self._side_stream.wait_stream(main)
+                        with torch.cuda.stream(self._side_stream):
+                            self._iteration(chunk)
+                        main.wait_stream(self._side_stream)
+                    tracing.count("train.eager_iterations")
                     chunk.warm = True
                     done = 1
                 if done < k:
-                    self._capture(chunk)
-            for _ in range(k - done):
-                chunk.graph.replay()
+                    self._capture(chunk, it + done)
+            if done < k:
+                with tracing.span("dnnpde.train.replay", replays=k - done):
+                    for _ in range(k - done):
+                        chunk.graph.replay()
+                tracing.count("train.graph_replays", k - done)
 
     def _read_out(self, chunk: _Chunk, k: int) -> tuple:
         """Start copying a chunk's logs (and best state) to the host; read
@@ -780,6 +791,11 @@ class Trainer:
         """Train for ``n_iter`` iterations. Successive calls continue the
         iteration counter; changing the learning rate or optimizer, or
         passing a schedule ``count -> lr``, starts a fresh optimizer state."""
+        with tracing.span("dnnpde.train", it=self._next_it, n_iter=n_iter):
+            return self._train(n_iter, learning_rate, optimizer_type, log_every, verbose)
+
+    def _train(self, n_iter: int, learning_rate: LearningRate, optimizer_type: str,
+               log_every: int, verbose: bool) -> TrainResult:
         self._select_optimizer(optimizer_type, learning_rate, fresh=callable(learning_rate))
         previous_it = self._next_it
         start = time.time()
@@ -798,33 +814,35 @@ class Trainer:
             nonlocal min_loss, min_state, tick
             while len(pending) > keep:
                 it, b_N, (out, event) = pending.pop(0)
-                if event is not None:
-                    event.synchronize()
-                losses, y0s = out[0].numpy()
-                self.training_loss.append(float(losses.mean()))
-                self.iteration.append(it)
-                y0_last = float(y0s[-1])
-                self.y0_log.append(y0_last)
-                if self.track_best:
-                    b_loss = float(out[1])
-                    if b_loss < min_loss:
-                        min_loss = b_loss
-                        min_state = (out[2].numpy(), out[3].numpy())
-                else:
-                    min_loss = min(min_loss, float(losses.min()))
-                if self.metrics_file is not None and self._is_main:
-                    self._write_metrics(
-                        it=it, loss=float(losses[-1]), mean_loss=float(losses.mean()),
-                        y0=y0_last, lr=lr_logged, N=b_N, optimizer=optimizer_type,
-                        elapsed_s=time.time() - start,
-                    )
-                if verbose and self._is_main:
-                    now = time.time()
-                    print(
-                        f"It: {it}, Loss: {losses[-1]:.3e}, Y0: {y0_last:.3f}, "
-                        f"Time: {now - tick:.2f}, Learning Rate: {lr_str}, N: {b_N}"
-                    )
-                    tick = now
+                with tracing.span("dnnpde.train.drain", it=it):
+                    with tracing.span("dnnpde.train.wait", it=it):
+                        if event is not None:
+                            event.synchronize()
+                    losses, y0s = out[0].numpy()
+                    self.training_loss.append(float(losses.mean()))
+                    self.iteration.append(it)
+                    y0_last = float(y0s[-1])
+                    self.y0_log.append(y0_last)
+                    if self.track_best:
+                        b_loss = float(out[1])
+                        if b_loss < min_loss:
+                            min_loss = b_loss
+                            min_state = (out[2].numpy(), out[3].numpy())
+                    else:
+                        min_loss = min(min_loss, float(losses.min()))
+                    if self.metrics_file is not None and self._is_main:
+                        self._write_metrics(
+                            it=it, loss=float(losses[-1]), mean_loss=float(losses.mean()),
+                            y0=y0_last, lr=lr_logged, N=b_N, optimizer=optimizer_type,
+                            elapsed_s=time.time() - start,
+                        )
+                    if verbose and self._is_main:
+                        now = time.time()
+                        print(
+                            f"It: {it}, Loss: {losses[-1]:.3e}, Y0: {y0_last:.3f}, "
+                            f"Time: {now - tick:.2f}, Learning Rate: {lr_str}, N: {b_N}"
+                        )
+                        tick = now
 
         if self.refinement is not None:
             buckets = list(self.refinement.buckets(previous_it, n_iter))
@@ -834,31 +852,34 @@ class Trainer:
             done = 0
             while done < b_len:
                 k = min(log_every, b_len - done)
-                chunk = self._get_chunk(b_N, optimizer_type, k)
-                self._ensure_ema()
-                retry_allowed = (
-                    self.collapse_restart
-                    and len(self.collapse_restarts) < self.collapse_max_restarts
-                )
-                if retry_allowed:
-                    snap = self._snapshot()
-                self._run_chunk(chunk, k)
-                if retry_allowed and self._collapsed_y0(float(chunk.y0s[k - 1])):
-                    # roll back to the pre-chunk state and retry on a re-seeded
-                    # stream; the failed chunk is not logged and does not
-                    # advance the iteration counter
-                    seed = self._reroll_seed(len(self.collapse_restarts))
-                    self._restore(snap)
-                    self.generator.manual_seed(seed)
-                    self.collapse_restarts.append(b_start + done)
-                    if verbose and self._is_main:
-                        print(
-                            f"It: {b_start + done}, collapse detected (Y0 pinned) — rolled "
-                            f"back, restart {len(self.collapse_restarts)}/"
-                            f"{self.collapse_max_restarts}"
-                        )
-                    continue
-                pending.append((b_start + done, b_N, self._read_out(chunk, k)))
+                it = b_start + done
+                with tracing.span("dnnpde.train.chunk", it=it, k=k):
+                    chunk = self._get_chunk(b_N, optimizer_type, k)
+                    self._ensure_ema()
+                    retry_allowed = (
+                        self.collapse_restart
+                        and len(self.collapse_restarts) < self.collapse_max_restarts
+                    )
+                    if retry_allowed:
+                        snap = self._snapshot()
+                    self._run_chunk(chunk, k, it)
+                    if retry_allowed and self._collapsed_y0(float(chunk.y0s[k - 1])):
+                        # roll back to the pre-chunk state and retry on a re-seeded
+                        # stream; the failed chunk is not logged and does not
+                        # advance the iteration counter
+                        seed = self._reroll_seed(len(self.collapse_restarts))
+                        self._restore(snap)
+                        self.generator.manual_seed(seed)
+                        self.collapse_restarts.append(it)
+                        if verbose and self._is_main:
+                            print(
+                                f"It: {it}, collapse detected (Y0 pinned) — rolled "
+                                f"back, restart {len(self.collapse_restarts)}/"
+                                f"{self.collapse_max_restarts}"
+                            )
+                        continue
+                    with tracing.span("dnnpde.train.read_out", it=it):
+                        pending.append((it, b_N, self._read_out(chunk, k)))
                 _drain(keep=0 if retry_allowed else 1)
                 done += k
 

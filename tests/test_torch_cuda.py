@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ
 from dnnpde_tpu_torch.ops.mlp_kernel import (
     mlp_u_z_bwd,
@@ -33,6 +34,11 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
     return torch.device("cuda")
+
+
+def _calls(kernel: str) -> int:
+    """The kernel wrapper's calls so far (the ``ops.<kernel>.calls`` counter)."""
+    return tracing.counters().get(f"ops.{kernel}.calls", 0)
 
 
 def _on(device, arrays):
@@ -57,10 +63,10 @@ def test_k1_matches_plain_version(cuda_device, B):
                            for a, b in zip(layers[:-1], layers[1:])])
     bs = _on(cuda_device, [(0.1 * rng.normal(size=(b,))).astype(np.float32) for b in layers[1:]])
     (x,) = _on(cuda_device, [rng.normal(size=(B, layers[0])).astype(np.float32)])
-    before = mlp_u_z_fwd.launches
+    before = _calls("mlp_u_z_fwd")
     u, z = mlp_u_z_fwd(Ws, bs, x)
     torch.cuda.synchronize()
-    assert mlp_u_z_fwd.launches == before + 1
+    assert _calls("mlp_u_z_fwd") == before + 1
     u_ref, z_ref = mlp_u_z_fwd_reference(Ws, bs, x)
     _assert_kernel_close(u, u_ref)
     _assert_kernel_close(z, z_ref)
@@ -148,10 +154,10 @@ def test_k3_matches_plain_version(cuda_device, variant):
         (kw["dWs"],) = _on(cuda_device, [(0.4 * rng.normal(size=(M, N, D))).astype(np.float32)])
     else:
         kw.update(seed=99, M=M)
-    before = rollout_paths.launches
+    before = _calls("rollout_paths")
     y = rollout_paths(Ws, bs, x0, **kw)
     torch.cuda.synchronize()
-    assert rollout_paths.launches == before + 1
+    assert _calls("rollout_paths") == before + 1
     _assert_kernel_close(y, rollout_paths_reference(Ws, bs, x0, **kw))
 
 
@@ -208,11 +214,11 @@ def _full_width(device, B, seed):
 @pytest.mark.parametrize("B", [1, 100, 2048])
 def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
     Ws, bs, x, u_bar, z_bar = _full_width(cuda_device, B, seed=B)
-    before = mlp_u_z_bwd.launches
+    before = _calls("mlp_u_z_bwd")
     W_bars, b_bars, x_bar = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
     again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
     torch.cuda.synchronize()
-    assert mlp_u_z_bwd.launches == before + 2
+    assert _calls("mlp_u_z_bwd") == before + 2
     W_ref, b_ref, x_ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
     for a, r in zip([*W_bars, *b_bars, x_bar], [*W_ref, *b_ref, x_ref]):
         _assert_kernel_close(a, r)
@@ -288,10 +294,10 @@ def test_fused_function_gradients_match_plain_function(cuda_device):
         loss = (u2 * u).sum() + (z2 * z).sum()
         return [g.cpu() for g in torch.autograd.grad(loss, [x_d, *wb])]
 
-    before = (mlp_u_z_fwd.launches, mlp_u_z_bwd.launches)
+    before = (_calls("mlp_u_z_fwd"), _calls("mlp_u_z_bwd"))
     on_card = grads(cuda_device)
     torch.cuda.synchronize()
-    assert (mlp_u_z_fwd.launches, mlp_u_z_bwd.launches) == (before[0] + 2, before[1] + 2)
+    assert (_calls("mlp_u_z_fwd"), _calls("mlp_u_z_bwd")) == (before[0] + 2, before[1] + 2)
     for a, r in zip(on_card, grads("cpu")):
         _assert_kernel_close(a, r)
 
@@ -316,12 +322,12 @@ def _k4_case(D, correlated, M, N, seed=2024):
 
 
 def _check_k4(device, args, chol, tile_m=256):
-    before = gbm_terminal.launches
+    before = _calls("gbm_terminal")
     out = gbm_terminal(*args, chol=chol, tile_m=tile_m, device=device)
     again = gbm_terminal(*args, chol=chol, tile_m=tile_m, device=device)
     other = gbm_terminal(args[0] + 1, *args[1:], chol=chol, tile_m=tile_m, device=device)
     torch.cuda.synchronize()
-    assert gbm_terminal.launches == before + 3
+    assert _calls("gbm_terminal") == before + 3
     ref = gbm_terminal_reference(*args, chol=chol, device=device)
     assert out.shape == (args[-1], len(args[1])) and bool(torch.isfinite(out).all())
     assert float(((out - ref).abs() / ref.abs()).max()) <= K4_RTOL
@@ -428,18 +434,16 @@ def _last_chunk(tr, k):
     (False, False, False, True),
 ], ids=["k1k2", "k1k2-guard", "k1k2-guard-best", "f32", "f32-guard", "f32-best", "f32-remat"])
 def test_captured_chunk_equals_eager_steps(cuda_device, backend, guard, best, remat):
-    from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
-
     k = 8
     kw = dict(nan_guard=guard, track_best=best, remat=remat)
     captured, eager = _chunk_trainer(cuda_device, backend, **kw), _chunk_trainer(cuda_device,
                                                                                    backend, **kw)
-    fwd, bwd = mlp_u_z_fwd.launches, mlp_u_z_bwd.launches
+    fwd, bwd = _calls("mlp_u_z_fwd"), _calls("mlp_u_z_bwd")
     res = captured.train(k, 1e-3, log_every=k, verbose=False)
     # the wrappers count the eager warm-up iteration and the capture, not the replays
     per_iteration = (CHUNK_N + 1) if backend == "cuda" else 0
-    assert mlp_u_z_fwd.launches - fwd == 2 * per_iteration
-    assert mlp_u_z_bwd.launches - bwd == 2 * per_iteration
+    assert _calls("mlp_u_z_fwd") - fwd == 2 * per_iteration
+    assert _calls("mlp_u_z_bwd") - bwd == 2 * per_iteration
     losses, y0s = _eager_steps(eager, k)
     got_losses, got_y0s = _last_chunk(captured, k)
     assert torch.equal(got_losses, losses) and torch.equal(got_y0s, y0s)
@@ -891,3 +895,38 @@ def test_profile_trace_holds_every_kernel_of_the_block(cuda_device, tmp_path):
         assert runs == want, (i, runs)
         assert sum(ts > last for ts in spins) == 1
         assert any(e.get("name") == "profile_trace lead-in" for e in events)
+
+
+def test_a_captured_chunk_counts_and_traces_its_replays(cuda_device, tmp_path):
+    """A fresh chunk of k iterations counts its eager warm-up, one capture
+    and k − 1 replays; in the ``profile_trace`` file the k − 1 graph launches
+    lie inside the ``dnnpde.train.replay`` range, every K1 record of the
+    replays comes from one of them and starts after the range opened, and
+    the warm-up's K1 records come before it."""
+    import json
+
+    from dnnpde_tpu_torch.train import profile_trace
+
+    k = 4
+    tr = _chunk_trainer(cuda_device, "cuda", seed=7)
+    names = ("train.graph_captures", "train.graph_replays", "train.eager_iterations")
+    before = tracing.counters()
+    with profile_trace(str(tmp_path)):
+        tr.train(k, 1e-3, log_every=k, verbose=False)
+    after = tracing.counters()
+    assert [after.get(n, 0) - before.get(n, 0) for n in names] == [1, k - 1, 1]
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    (replay,) = [e for e in events if e.get("name") == "dnnpde.train.replay"
+                 and e.get("cat") == "user_annotation"]
+    a = float(replay["ts"])
+    b = a + float(replay["dur"])
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("name") == "cudaGraphLaunch" and a <= float(e["ts"]) <= b}
+    assert len(launches) == k - 1
+    k1 = [e for e in events if e.get("cat") == "kernel" and "mlp_u_z_fwd_kernel" in e["name"]]
+    replayed = [e for e in k1 if e.get("args", {}).get("correlation") in launches]
+    warm_up = [e for e in k1 if e.get("args", {}).get("correlation") not in launches]
+    assert len(replayed) == (k - 1) * (CHUNK_N + 1) and len(warm_up) == CHUNK_N + 1
+    assert all(float(e["ts"]) >= a for e in replayed)
+    assert all(float(e["ts"]) < a for e in warm_up)
