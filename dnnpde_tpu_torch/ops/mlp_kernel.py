@@ -5,14 +5,16 @@ Counterparts of ``dnnpde_tpu/ops/mlp_kernel.py::mlp_u_z_fwd_pallas`` and
 ``mlp_u_z_bwd_pallas``. K1 (``csrc/mlp_u_z_fwd.cu``) runs the forward pass
 and the Z-sweep for a tile of rows on tensor cores (``mma.sync``), with the
 tile's activations in shared memory; only x, u and Z touch device memory.
-K2 (``csrc/mlp_u_z_bwd.cu``) is two launches on tensor cores: a row chain,
-one block per 16-row tile, recomputes K1's forward with K1's own layer, bit
-for bit, runs the Z-path adjoint and the u-path backward on that same layer
-and writes x_bar, the weight gradients' bf16 operands and per-tile column
-sums to a scratch buffer; a second kernel forms each weight gradient as one
-product over the batch, a block per output tile, and sums the column sums
-in tile order. Matmul operands are rounded to bf16 and accumulated in f32,
-as on the TPU.
+K2 (``csrc/mlp_u_z_bwd.cu``) is two launches on tensor cores: a row chain
+recomputes K1's forward, bit for bit, runs the Z-path adjoint and the u-path
+backward and writes x_bar, the weight gradients' bf16 operands and per-tile
+column sums to a scratch buffer; a second kernel forms each weight gradient
+as one product over the batch, a block per output tile, and sums the column
+sums in tile order. The row chain runs each 16-row tile either on a cluster
+of 8 CTAs that keep their slices of the weights in shared memory, or on one
+block that streams the weights from L2 with K1's own layer; the two give the
+same bits, and :func:`bwd_takes_cluster` chooses from the widths and B.
+Matmul operands are rounded to bf16 and accumulated in f32, as on the TPU.
 
 ``mlp_u_z_fwd`` and ``mlp_u_z_bwd`` launch their kernels for CUDA tensors
 and raise on anything they do not take. For CPU tensors they compute the
@@ -33,6 +35,13 @@ from dnnpde_tpu_torch import tracing
 Tensor = torch.Tensor
 
 MAX_LAYERS = 8  # DNNPDE_MAX_LAYERS in csrc/common.cuh
+MAX_SMEM = 227 * 1024  # DNNPDE_MAX_SMEM: shared memory a block may use
+CLUSTER_CTAS = 8  # cluster::kCtas in csrc/mlp_u_z_bwd.cu
+# Largest batch whose row chain runs on clusters. An H100 holds about 15
+# clusters of 8 CTAs at once, so up to 28 tiles of 16 rows take two waves of
+# clusters (~79 us at full width, against ~116 us for the one-block design,
+# 16 rows to an SM); from 32 tiles on it is three or more (PERF.md, PR 18).
+CLUSTER_MAX_ROWS = 448
 
 
 def bf16_dot(a: Tensor, w: Tensor) -> Tensor:
@@ -85,12 +94,17 @@ def _lib(name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         n_ptrs = {"mlp_u_z_fwd": 6, "mlp_u_z_bwd": 9}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        entries = [fn] + ([lib.mlp_u_z_bwd_cluster] if name == "mlp_u_z_bwd" else [])
+        for entry in entries:
+            entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            entry.restype = ctypes.c_int
         if name == "mlp_u_z_bwd":
             size = lib.mlp_u_z_bwd_scratch_bytes
             size.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
             size.restype = ctypes.c_longlong
+            smem = lib.mlp_u_z_bwd_cluster_smem_bytes
+            smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -173,26 +187,53 @@ def mlp_u_z_bwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
     return tuple(W_bars), tuple(b_bars), a_bar
 
 
-def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
-                u_bar: Tensor, z_bar: Tensor):
-    """(W_bars, b_bars, x_bar): the gradients of <u, u_bar> + <Z_full, z_bar>
-    for a sine MLP at x = [t, X] (B, n0), in the shapes of Ws, bs and x.
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
-    CUDA tensors launch K2 on the current stream (the gradients come back
-    as views of one flat buffer); CPU tensors take
-    :func:`mlp_u_z_bwd_reference`."""
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous float32 (B, n0) tensor, got {x.dtype} {tuple(x.shape)}")
-    B, n0 = x.shape
-    _check_rows("u_bar", u_bar, (B, 1), x.device)
-    _check_rows("z_bar", z_bar, (B, n0), x.device)
-    widths = check_mlp(Ws, bs, x.device)
-    if x.device.type == "cpu":
-        return mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_u_z_bwd runs on CUDA or CPU tensors, got {x.device}")
+
+def _cluster_cols(n: int) -> int:
+    """Columns of a width-n layer that one CTA of K2's clusters owns: its
+    8-column tiles, ``ceil(round16(n) / 8 / CLUSTER_CTAS)`` rounded up to a
+    power of two."""
+    tiles = (_round16(n) // 8 + CLUSTER_CTAS - 1) // CLUSTER_CTAS
+    return 8 * (1 << (tiles - 1).bit_length())
+
+
+def bwd_cluster_smem_bytes(widths: Sequence[int]) -> int:
+    """Shared memory of one CTA of K2's clustered row chain for a net of
+    these widths ``[n0, ..., 1]`` (the C side's
+    ``mlp_u_z_bwd_cluster_smem_bytes``): its slices of the weights in bf16
+    (rows padded by 8), three mbarriers and its f32 inputs, then the larger of
+    the prologue's two f32 staging buffers (of column slices) and the
+    tile's three bf16
+    operands (a block of 16 rows a CTA) with its columns of the f32 state."""
+    L = len(widths) - 1
+    lw = [_cluster_cols(n) for n in widths]
+    slices = sum(2 * CLUSTER_CTAS * lw[k] * (lw[k + 1] + 8) for k in range(L - 1))
+    inputs = 8 + 2 * 16 * _round16(widths[0]) + 16 + sum(lw[1:L]) + lw[L - 1]
+    stage = max(widths[k] * lw[k + 1] for k in range(L - 1))
+    lwmax = max(lw[:L])
+    operands = 3 * CLUSTER_CTAS * 16 * (lwmax + 8)
+    steady = 2 * operands + 4 * (2 * 16 * sum(lw[1:L]) + 4 * 16 * lwmax)
+    return 2 * slices + 4 * inputs + max(steady, 4 * 2 * stage)
+
+
+def bwd_takes_cluster(widths: Sequence[int], B: int) -> bool:
+    """Whether K2's row chain runs on thread-block clusters for B rows of a
+    net of these widths: where a CTA's slices and state fit its shared
+    memory and B is at most ``CLUSTER_MAX_ROWS``. Both row chains give the
+    same bits; this chooses the faster."""
+    return B <= CLUSTER_MAX_ROWS and bwd_cluster_smem_bytes(widths) <= MAX_SMEM
+
+
+def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
+                u_bar: Tensor, z_bar: Tensor, widths: Sequence[int]):
+    """K2 through the C entry point ``entry`` (``mlp_u_z_bwd``, the one-block
+    row chain, or ``mlp_u_z_bwd_cluster``) on checked CUDA inputs; the
+    gradients come back as views of one flat buffer."""
     from dnnpde_tpu_torch.ops import _build
 
+    B, n0 = x.shape
     shapes = [tuple(w.shape) for w in Ws] + [tuple(b.shape) for b in bs]
     sizes = [w.numel() for w in Ws] + [b.numel() for b in bs]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
@@ -208,12 +249,40 @@ def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
                           dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.mlp_u_z_bwd(
+        code = getattr(lib, entry)(
             x.data_ptr(), u_bar.data_ptr(), z_bar.data_ptr(), x_bar.data_ptr(),
             flat.data_ptr(), scratch.data_ptr(),
             _build.pointer_array(Ws), _build.pointer_array(bs),
             widths_c, len(Ws), B, stream,
         )
-    _build.check(lib, code, "mlp_u_z_bwd")
-    tracing.count("ops.mlp_u_z_bwd.calls")
+    _build.check(lib, code, entry)
     return tuple(grads[:len(Ws)]), tuple(grads[len(Ws):]), x_bar
+
+
+def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
+                u_bar: Tensor, z_bar: Tensor):
+    """(W_bars, b_bars, x_bar): the gradients of <u, u_bar> + <Z_full, z_bar>
+    for a sine MLP at x = [t, X] (B, n0), in the shapes of Ws, bs and x.
+
+    CUDA tensors launch K2 on the current stream (the gradients come back
+    as views of one flat buffer), its row chain on clusters where
+    :func:`bwd_takes_cluster` says so; CPU tensors take
+    :func:`mlp_u_z_bwd_reference`."""
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 (B, n0) tensor, got {x.dtype} {tuple(x.shape)}")
+    B, n0 = x.shape
+    _check_rows("u_bar", u_bar, (B, 1), x.device)
+    _check_rows("z_bar", z_bar, (B, n0), x.device)
+    widths = check_mlp(Ws, bs, x.device)
+    if x.device.type == "cpu":
+        return mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_u_z_bwd runs on CUDA or CPU tensors, got {x.device}")
+    clustered = bwd_takes_cluster(widths, B)
+    out = _bwd_launch("mlp_u_z_bwd_cluster" if clustered else "mlp_u_z_bwd",
+                      Ws, bs, x, u_bar, z_bar, widths)
+    if B > 0:
+        tracing.count("ops.mlp_u_z_bwd.calls")
+        if clustered:
+            tracing.count("ops.mlp_u_z_bwd.cluster_calls")
+    return out

