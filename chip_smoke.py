@@ -25,7 +25,13 @@ built for CUDA. It
    N = 1, value by value, bitwise across two launches and apart across two
    seeds, then the statistics
    checks of ``scripts/verify_tpu_kernels.py`` (mean, log-std,
-   correlation, and the K4 basket price against Black-Scholes);
+   correlation, and the K4 basket price against Black-Scholes); then K1's
+   and K2's NAIS-Net instantiations (``nais=True``) on the NAIS-Net Sine
+   [101, 256 x 4, 1] in the kernels' layout (``extract_nais_params``) for
+   B in {1, 100, 2048}, K2 again bit for bit, and one full-width basket
+   step on that net on the kernels against its f32 autograd step; the
+   ``kernels`` line gives their launches and their kernel / plain / bound
+   ms at B = 100;
 4. holds one full-width training step on the kernels (``fused_net_u="cuda"``)
    against the f32 autograd step (``"torch"``): loss and every gradient, on
    BSB-100 and on the basket call;
@@ -427,17 +433,21 @@ def library_u_z(Wb, bb, x):
     return u, r
 
 
-def check_k1(Ws, bs, device, batches=K1_BATCHES) -> dict:
+def check_k1(Ws, bs, device, batches=K1_BATCHES, nais: bool = False) -> dict:
+    """K1 against its plain version at each batch; with ``nais``, its
+    NAIS-Net instantiation on weights in that layout (``make_nais``)."""
     from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_fwd, mlp_u_z_fwd_reference
 
+    name = "K1 NAIS" if nais else "K1"
     worst = 0.0
     for B in batches:
         t, X = requests(B, device, seed=B)
         x = torch.cat([t, X], dim=1).contiguous()
-        u, z = mlp_u_z_fwd(Ws, bs, x)
-        u_ref, z_ref = mlp_u_z_fwd_reference(Ws, bs, x)
-        _require(u.shape == (B, 1) and z.shape == (B, LAYERS[0]), f"K1 shapes at B={B}")
-        worst = max(worst, _compare(f"K1 u B={B}", u, u_ref), _compare(f"K1 Z B={B}", z, z_ref))
+        u, z = mlp_u_z_fwd(Ws, bs, x, nais=nais)
+        u_ref, z_ref = mlp_u_z_fwd_reference(Ws, bs, x, nais=nais)
+        _require(u.shape == (B, 1) and z.shape == (B, LAYERS[0]), f"{name} shapes at B={B}")
+        worst = max(worst, _compare(f"{name} u B={B}", u, u_ref),
+                    _compare(f"{name} Z B={B}", z, z_ref))
     return {"max_abs_err": worst}
 
 
@@ -494,23 +504,26 @@ def _k2_inputs(B: int, device, seed: int):
     return (x, *cotangents(B, device, seed + 1))
 
 
-def check_k2(Ws, bs, device, batches=K2_BATCHES) -> dict:
+def check_k2(Ws, bs, device, batches=K2_BATCHES, nais: bool = False) -> dict:
+    """K2 against its plain version at each batch, and two launches bit for
+    bit; with ``nais``, its NAIS-Net instantiation (``make_nais``)."""
     from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_bwd_reference
 
+    kernel = "K2 NAIS" if nais else "K2"
     worst = 0.0
     for B in batches:
         x, u_bar, z_bar = _k2_inputs(B, device, seed=200 + B)
-        out = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
-        again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
-        ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+        out = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=nais)
+        again = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=nais)
+        ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=nais)
         flat = [*out[0], *out[1], out[2]]
         names = ([f"W_bar[{k}]" for k in range(len(Ws))]
                  + [f"b_bar[{k}]" for k in range(len(bs))] + ["x_bar"])
         for name, a, r in zip(names, flat, [*ref[0], *ref[1], ref[2]]):
-            worst = max(worst, _compare(f"K2 {name} B={B}", a, r))
+            worst = max(worst, _compare(f"{kernel} {name} B={B}", a, r))
         same = all(torch.equal(a, b) for a, b in zip(flat, [*again[0], *again[1], again[2]]))
-        print(f"K2 B={B}: two launches bitwise equal: {same}")
-        _require(same, f"K2 is not deterministic at B={B}")
+        print(f"{kernel} B={B}: two launches bitwise equal: {same}")
+        _require(same, f"{kernel} is not deterministic at B={B}")
     return {"max_abs_err": worst}
 
 
@@ -551,6 +564,94 @@ def time_k2(Ws, bs, device) -> dict:
                    "library_ms": library_ms, "shape": f"B={B}"}
     print("K2 by batch: " + json.dumps(rows))
     return rows[TRAIN_M]
+
+
+# ---- K1 and K2 in their NAIS-Net form ------------------------------------
+
+
+def make_nais(device, seed: int = 0):
+    """The NAIS-Net Sine at full width: the port's net from a seeded
+    generator with small random biases, and its (Ws, bs) in the kernels'
+    layout (``params.extract_nais_params``: each block one layer on [x, a]
+    with weight [U_i; 0; -A_i], its projection A_i computed once)."""
+    from dnnpde_tpu_torch.nets.networks import build_network
+    from dnnpde_tpu_torch.params import extract_nais_params
+
+    gen = torch.Generator().manual_seed(seed)
+    net = build_network("Naisnet", LAYERS, "Sine", generator=gen, device=device)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen).to(device))
+        Ws, bs = extract_nais_params(net)
+    return net, [w.detach().contiguous() for w in Ws], [b.detach() for b in bs]
+
+
+def _nais_macs(widths) -> tuple[int, int]:
+    """(hidden, head) multiply-adds per row of the NAIS-Net forward pass: the
+    input layer n0·H, each block (H + n0)·H (its -A_i on a_i, its U_i on x),
+    and the head H·n_out (``benchmark/roofline/nais.py`` counts the same)."""
+    n0, H, blocks = widths[0], widths[1], len(widths) - 3
+    return n0 * H + blocks * (H + n0) * H, H * widths[-1]
+
+
+def _nais_weight_bytes(widths) -> int:
+    n0, H, blocks = widths[0], widths[1], len(widths) - 3
+    return 4 * (n0 * H + H + blocks * ((H + n0) * H + H) + H * widths[-1] + widths[-1])
+
+
+def time_nais(Ws, bs, device, B: int = TRAIN_M) -> tuple[dict, dict]:
+    """Kernel, plain and bound ms of K1's and K2's NAIS forms at the
+    training path's B = M: the forward pass and Z-sweep (K1); the forward
+    recomputed, the sweep through the blocks' -A_i, the Z-path adjoint and
+    the u-path backward (K2)."""
+    from dnnpde_tpu_torch.ops.mlp_kernel import (
+        mlp_u_z_bwd, mlp_u_z_bwd_reference, mlp_u_z_fwd, mlp_u_z_fwd_reference,
+    )
+
+    x, u_bar, z_bar = _k2_inputs(B, device, seed=400 + B)
+    hidden, head = _nais_macs(LAYERS)
+    blocks, H = len(LAYERS) - 3, LAYERS[1]
+    k1_bound = bound_ms(2 * B * (2 * hidden + head),
+                        4 * B * (2 * LAYERS[0] + 1) + _nais_weight_bytes(LAYERS))
+    k2_macs = 3 * hidden + blocks * H * H + 2 * head + 2 * hidden
+    k2_bound = bound_ms(2 * B * k2_macs,
+                        4 * B * (3 * LAYERS[0] + 1) + 2 * _nais_weight_bytes(LAYERS))
+    rows = []
+    for fn, plain, (bms, by) in (
+            (lambda: mlp_u_z_fwd(Ws, bs, x, nais=True),
+             lambda: mlp_u_z_fwd_reference(Ws, bs, x, nais=True), k1_bound),
+            (lambda: mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True),
+             lambda: mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=True), k2_bound)):
+        rows.append({"ms": time_ms(fn, iters=50), "plain_ms": time_ms(plain, iters=20),
+                     "bound_ms": bms, "bound_by": by, "shape": f"B={B}"})
+    print("K1 NAIS, K2 NAIS: " + json.dumps(rows))
+    return rows[0], rows[1]
+
+
+def check_nais_kernels(device) -> dict:
+    """K1's and K2's NAIS forms against their plain versions at B in
+    {1, M, 2048} (K2 bit for bit across two launches), then one full-width
+    basket step on the NAIS-Net against its f32 autograd step; returns the
+    NAIS instantiations' checks and their launches (``.nais_calls``: these
+    are the only NAIS-Net calls of the kernels in this script)."""
+    from dnnpde_tpu_torch import tracing
+    from dnnpde_tpu_torch.pde import BasketCallOption
+
+    zero_counts()
+    net, Ws, bs = make_nais(device)
+    k1 = check_k1(Ws, bs, device, batches=K2_BATCHES, nais=True)
+    k2 = check_k2(Ws, bs, device, batches=K2_BATCHES, nais=True)
+    check_train_step(net, device, BasketCallOption(D=D), "NAIS basket train step")
+    counts = tracing.counters()
+    for out, name in ((k1, "mlp_u_z_fwd"), (k2, "mlp_u_z_bwd")):
+        n = counts.get(f"ops.{name}.nais_calls", 0)
+        out.update(launches=n, launches_by_path={"kernel_checks": n})
+    # each batch once (K2 twice), and N + 1 calls of each in the train step
+    _require((k1["launches"], k2["launches"]) == (len(K2_BATCHES) + N_STEPS + 1,
+                                                  2 * len(K2_BATCHES) + N_STEPS + 1),
+             f"NAIS kernel calls {k1['launches']}, {k2['launches']}")
+    return {"k1": k1, "k2": k2, "weights": (Ws, bs)}
 
 
 # ---- K3 -------------------------------------------------------------------
@@ -3719,6 +3820,7 @@ def main() -> int:
     k4 = check_k4(device)
     check_train_step(net, device)
     check_train_step(net, device, BasketCallOption(D=D), "basket train step")
+    nais = check_nais_kernels(device)
     lap("kernel_checks")
 
     train = drive_training(device)
@@ -3804,6 +3906,8 @@ def main() -> int:
     lap("timing")
     k1.update(time_k1(Ws, bs, device))
     k2.update(time_k2(Ws, bs, device))
+    for out, row in zip((nais["k1"], nais["k2"]), time_nais(*nais.pop("weights"), device)):
+        out.update(row)
     k3_seed, k3_dws = time_k3(Ws, bs, x0, k3.pop("dWs"), device)
     k3.update(k3_seed)
     print("K3 explicit-dW variant: " + json.dumps(k3_dws))
@@ -3841,6 +3945,12 @@ def main() -> int:
          "source": "dnnpde_tpu_torch/csrc/mlp_u_z_bwd.cu",
          "replaces": "dnnpde_tpu/ops/mlp_kernel.py:221",
          **launches("mlp_u_z_bwd", K1_K2_KERNELS[1:]), **k2},
+        {"name": "mlp_u_z_fwd_nais", "route": "cuda",
+         "source": "dnnpde_tpu_torch/csrc/mlp_u_z_fwd.cu",
+         "instantiates": "mlp_u_z_fwd for the NAIS-Net", **nais["k1"]},
+        {"name": "mlp_u_z_bwd_nais", "route": "cuda",
+         "source": "dnnpde_tpu_torch/csrc/mlp_u_z_bwd.cu",
+         "instantiates": "mlp_u_z_bwd for the NAIS-Net", **nais["k2"]},
         {"name": "rollout_paths", "route": "cuda",
          "source": "dnnpde_tpu_torch/csrc/rollout.cu",
          "replaces": "dnnpde_tpu/ops/rollout_kernel.py:182",

@@ -88,6 +88,23 @@
 // written (16 x round16(width) bf16, zero beyond the width); the weight
 // gradient's chunks beyond the last row or the padded width are zero-filled
 // by cp.async.
+//
+// The NAIS-Net (K1's note, csrc/mlp_u_z_fwd.cu): each block k of 1 .. L-2
+// is a layer on [x, a_k] with weight W_k = [U_k; 0; -A_k] and a residual,
+// so its adjoints gain identity paths and x columns:
+//   recompute  a_{k+1} = sin p_k + a_k;  r_k = r_{k+1} + bf(q_k) bf(-A_k)^T
+//   Z-path     the block's A operand is [bf(z_bar), bf(c_k)] (Z's x part is
+//              a sum over the blocks); c_{k+1} = c_k + qb cos p_k
+//   u-path     W_bar_k += bf([x, a_k])^T bf(p_bar_k);  a_bar_k = a_bar_{k+1}
+//              + bf(p_bar_k) bf(-A_k)^T;  x_bar sums bf(p_bar_k) bf(U_k)^T
+//              over the blocks, then adds layer 0's product
+// with every stream (a_k, r_k, c_k, a_bar_k and the two x sums) in f32.
+// Design 1 runs it (mlp_u_z_bwd_rows_nais, the same body instantiated for
+// the block kind): the forward's a_k in the working rows, r_k and then
+// a_bar_k in the R slots that design 1 frees as it goes, the c stream in
+// the working rows. The weight-gradient kernel takes the blocks' (round16(n0)
+// + H)-row operands as it takes any width. The clustered row chain takes
+// the MLP only.
 #include "common.cuh"
 
 namespace {
@@ -102,6 +119,8 @@ struct BwdLayout {
   int hidden;  // sum of the slot widths
   int ldm;     // widest slot: row stride of the f32 working rows
   int lda;     // row stride of the bf16 operands, as K1's
+  int kin[DNNPDE_MAX_LAYERS];  // rows of W_k: width[k], or round16(n0) + width[k] for a
+                               // NAIS-Net block ([x, a_k] in)
   // The flat gradient: every W_k (row-major, JAX layout), then every b_k.
   int woff[DNNPDE_MAX_LAYERS];
   int boff[DNNPDE_MAX_LAYERS];
@@ -118,15 +137,16 @@ struct BwdLayout {
   long long bytes;
 };
 
-BwdLayout make_layout(const int* width, int L, int B) {
+BwdLayout make_layout(const int* width, int L, int B, bool nais) {
   BwdLayout lay;
   lay.tiles = (B + kTile - 1) / kTile;
   lay.half = kTile * lay.tiles;
   int off = 0, widest = 0;
   for (int k = 0; k < L; ++k) {
+    lay.kin[k] = nais && k > 0 && k < L - 1 ? dnnpde_round16(width[0]) + width[k] : width[k];
     lay.woff[k] = off;
-    off += width[k] * width[k + 1];
-    widest = widest > width[k] ? widest : width[k];
+    off += lay.kin[k] * width[k + 1];
+    widest = widest > lay.kin[k] ? widest : lay.kin[k];
   }
   for (int k = 0; k < L; ++k) {
     lay.boff[k] = off;
@@ -142,10 +162,11 @@ BwdLayout make_layout(const int* width, int L, int B) {
     lay.hidden += n4;
     lay.ldm = lay.ldm > n4 ? lay.ldm : n4;
     lay.aop[k] = ops;
-    ops += 2LL * lay.half * dnnpde_round16(width[k]);
+    ops += 2LL * lay.half * dnnpde_round16(lay.kin[k]);
     lay.bop[k] = ops;
     ops += 2LL * lay.half * dnnpde_round16(width[k + 1]);
   }
+  if (nais) widest = dnnpde_round16(width[0]) + dnnpde_round16(width[1]);
   lay.lda = dnnpde_round16(widest) + 8;
   lay.part = (ops * (long long)sizeof(bf16) + 15) & ~15LL;
   lay.bytes = lay.part + (long long)sizeof(float) * lay.tiles * lay.ntail;
@@ -163,20 +184,31 @@ __device__ __forceinline__ void store_rows(const bf16* src, int lda, int n, bf16
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads)
-mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
-                 const float* __restrict__ zbar, float* __restrict__ xbar,
-                 bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
-                 const BwdLayout lay, int B) {
+// One 16-row tile of design 1 for either net (NAIS = false: the sine MLP;
+// NAIS = true: the NAIS-Net, see the note above); shared memory as launch()
+// sizes it.
+template <bool NAIS>
+__device__ __forceinline__ void bwd_rows_tile(const float* __restrict__ x,
+                                              const float* __restrict__ ubar,
+                                              const float* __restrict__ zbar,
+                                              float* __restrict__ xbar, bf16* __restrict__ ops,
+                                              float* __restrict__ partials, const MlpWeights& w,
+                                              const BwdLayout& lay, int B) {
   extern __shared__ __align__(16) float smem[];
   const int L = w.L;
   const int n0 = w.width[0];
   const int H = w.width[L - 1], ldh = dnnpde_round4(H);
+  const int n0p = dnnpde_round16(n0);
+  const int xo = NAIS ? n0p : 0;          // NAIS: a layer's A operand is [x or z_bar, then this]
   float* P = smem;                        // p_k
-  float* R = P + kTile * lay.hidden;      // r_{k+1}, then pz_k
-  float* F = R + kTile * lay.hidden;      // f32 rows: the top layer's c, then p_bar
+  float* R = P + kTile * lay.hidden;      // r_{k+1}, then pz_k; NAIS: then a_bar_{k+1}
+  float* F = R + kTile * lay.hidden;      // f32 rows: the top layer's c, then p_bar; NAIS: a_k
+                                          // in the forward pass, the c stream in the Z-path
   float* ub = F + kTile * lay.ldm;        // u_bar of the tile's rows
-  bf16* stage = reinterpret_cast<bf16*>(ub + kTile);  // row16_layer's weight staging
+  float* sws = ub + kTile;                // NAIS: the head's column sums of bf(a_{L-1}) bf(u_bar)
+  const int ld0 = dnnpde_round4(n0);
+  float* xacc = sws + (NAIS ? ldh : 0);   // NAIS: the blocks' x_bar products, summed
+  bf16* stage = reinterpret_cast<bf16*>(xacc + (NAIS ? kTile * ld0 : 0));  // row16_layer's staging
   bf16* act0 = stage + kRow16StageElems;  // bf16 A operands and outputs, row stride lda
   bf16* act1 = act0 + kTile * lay.lda;
   const int row0 = blockIdx.x * kTile;
@@ -188,10 +220,11 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
     return ops + off + (size_t)(lay.half + row0) * dnnpde_round16(n);
   };
 
-  const int n0p = dnnpde_round16(n0);
   for (int i = threadIdx.x; i < kTile * n0p; i += blockDim.x) {
     const int b = i / n0p, c = i - b * n0p, r = row0 + b;
-    act0[b * lay.lda + c] = __float2bfloat16_rn(r < B && c < n0 ? x[(size_t)r * n0 + c] : 0.f);
+    const bf16 v = __float2bfloat16_rn(r < B && c < n0 ? x[(size_t)r * n0 + c] : 0.f);
+    act0[b * lay.lda + c] = v;
+    if (NAIS) act1[b * lay.lda + c] = v;
   }
   for (int b = threadIdx.x; b < kTile; b += blockDim.x) ub[b] = row0 + b < B ? ubar[row0 + b] : 0.f;
   __syncthreads();
@@ -201,7 +234,7 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   bf16* a = act0;
   bf16* nxt = act1;
   for (int k = 0; k < L - 1; ++k) {
-    const int K = w.width[k], n = w.width[k + 1], ldn = dnnpde_round4(n);
+    const int K = lay.kin[k], n = w.width[k + 1], ldn = dnnpde_round4(n);
     store_rows(a, lay.lda, K, urows(lay.aop[k], K));
     float* Pk = P + kTile * lay.slot[k];
     const float* bias = w.b[k];
@@ -211,10 +244,22 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
         const float p = acc + __ldg(bias + o);
         Pk[b * ldn + o] = p;
         s = sinf(p);
+        if (NAIS) {
+          if (k > 0) s += F[b * lay.ldm + o];
+          F[b * lay.ldm + o] = s;
+        }
       }
-      nxt[b * lay.lda + o] = __float2bfloat16_rn(s);
+      nxt[b * lay.lda + xo + o] = __float2bfloat16_rn(s);
     });
     bf16* t = a; a = nxt; nxt = t;
+  }
+  if (NAIS) {  // W_bar_{L-1}'s share of the u-path, from the f32 a_{L-1}
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      float sw = 0.f;
+      for (int b = 0; b < kTile; ++b)
+        sw = fmaf(bf16_round(F[b * lay.ldm + j]), bf16_round(ub[b]), sw);
+      sws[j] = sw;
+    }
   }
 
   // ---- Z-sweep as K1 runs it: r_k for k = L-2 .. 1 into slot k-1. Its A
@@ -236,29 +281,47 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
     store_rows(q, lay.lda, K, zrows(lay.bop[k], K));
     float* Rk = R + kTile * lay.slot[k - 1];
     const float* Pp = P + kTile * lay.slot[k - 1];
-    row16_layer<true>(q, lay.lda, K, w.W[k], K, n, stage, [&](int b, int o, float acc) {
-      float v = 0.f;
-      if (o < n) {
-        Rk[b * ldn + o] = acc;
-        v = acc * cosf(Pp[b * ldn + o]);
-      }
-      qn[b * lay.lda + o] = __float2bfloat16_rn(v);
-    });
+    if (NAIS) {  // the a rows of W_k only: r_k = r_{k+1} + q (-A_k)^T; Z's x part is not needed
+      const float* Rn = R + kTile * lay.slot[k];  // r_{k+1}
+      row16_layer<true>(q, lay.lda, K, w.W[k] + (size_t)n0p * K, K, n, stage,
+                        [&](int b, int o, float acc) {
+        float v = 0.f;
+        if (o < n) {
+          const float r = (k == L - 2 ? __ldg(wtop + o) : Rn[b * ldn + o]) + acc;
+          Rk[b * ldn + o] = r;
+          v = r * cosf(Pp[b * ldn + o]);
+        }
+        qn[b * lay.lda + o] = __float2bfloat16_rn(v);
+      });
+    } else {
+      row16_layer<true>(q, lay.lda, K, w.W[k], K, n, stage, [&](int b, int o, float acc) {
+        float v = 0.f;
+        if (o < n) {
+          Rk[b * ldn + o] = acc;
+          v = acc * cosf(Pp[b * ldn + o]);
+        }
+        qn[b * lay.lda + o] = __float2bfloat16_rn(v);
+      });
+    }
     bf16* t = q; q = qn; qn = t;
   }
   store_rows(q, lay.lda, w.width[1], zrows(lay.bop[0], w.width[1]));  // q_0
 
   // ---- Z-path adjoint, ascending; c starts as bf(z_bar) and is the A
-  // operand of both qb = bf(c) bf(W_k) and W_bar_k
+  // operand of both qb = bf(c) bf(W_k) and W_bar_k (NAIS: [bf(z_bar),
+  // bf(c_k)] for a block, with c_{k+1} = c_k + qb cos p_k in f32)
   bf16* c = qn;
   bf16* cn = q;
+  if (NAIS) __syncthreads();  // cn is q: q_0's store above reads it
   for (int i = threadIdx.x; i < kTile * n0p; i += blockDim.x) {
     const int b = i / n0p, j = i - b * n0p, r = row0 + b;
-    c[b * lay.lda + j] = __float2bfloat16_rn(r < B && j < n0 ? zbar[(size_t)r * n0 + j] : 0.f);
+    const bf16 v = __float2bfloat16_rn(r < B && j < n0 ? zbar[(size_t)r * n0 + j] : 0.f);
+    c[b * lay.lda + j] = v;
+    if (NAIS) cn[b * lay.lda + j] = v;
   }
   __syncthreads();
   for (int k = 0; k < L - 1; ++k) {
-    const int K = w.width[k], n = w.width[k + 1], ldn = dnnpde_round4(n);
+    const int K = lay.kin[k], n = w.width[k + 1], ldn = dnnpde_round4(n);
     const bool top = k == L - 2;
     store_rows(c, lay.lda, K, zrows(lay.aop[k], K));
     const float* Pk = P + kTile * lay.slot[k];
@@ -270,9 +333,14 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
         const float r = top ? __ldg(wtop + o) : Rk[b * ldn + o];
         Rk[b * ldn + o] = -qbar * r * sinf(p);  // pz_k replaces r_{k+1}
         v = qbar * cosf(p);
-        if (top) F[b * lay.ldm + o] = v;  // summed unrounded into W_bar_{L-1}
+        if (NAIS) {
+          if (k > 0) v += F[b * lay.ldm + o];
+          F[b * lay.ldm + o] = v;
+        } else if (top) {
+          F[b * lay.ldm + o] = v;  // summed unrounded into W_bar_{L-1}
+        }
       }
-      if (!top) cn[b * lay.lda + o] = __float2bfloat16_rn(v);
+      if (!top) cn[b * lay.lda + xo + o] = __float2bfloat16_rn(v);
     });
     bf16* t = c; c = cn; cn = t;
   }
@@ -298,12 +366,12 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
         const float p = Pt[b * ldh + j], u = bf16_round(ub[b]);
         const float pbar = (u * wj) * cosf(p) + Zt[b * ldh + j];
         zc += F[b * lay.ldm + j];
-        sw = fmaf(bf16_round(sinf(p)), u, sw);
+        if (!NAIS) sw = fmaf(bf16_round(sinf(p)), u, sw);
         sb += pbar;
         F[b * lay.ldm + j] = pbar;
         pb[b * lay.lda + j] = __float2bfloat16_rn(pbar);
       }
-      part[j] = zc + sw;
+      part[j] = zc + (NAIS ? sws[j] : sw);
       part[lay.boff[L - 2] - lay.woff[L - 1] + j] = sb;
     }
     if (threadIdx.x == 0) {
@@ -326,21 +394,61 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
     if (k > 0) {
       const float* Pp = P + kTile * lay.slot[k - 1];
       const float* Zp = R + kTile * lay.slot[k - 1];
-      row16_layer<true>(pb, lay.lda, n, w.W[k], n, K, stage, [&](int b, int o, float abar) {
-        float v = 0.f;
-        if (o < K) {
-          v = abar * cosf(Pp[b * ldk + o]) + Zp[b * ldk + o];
-          F[b * lay.ldm + o] = v;
-        }
-        ab[b * lay.lda + o] = __float2bfloat16_rn(v);
-      });
+      if (NAIS) {
+        // the x rows: this block's share of x_bar
+        row16_layer<true>(pb, lay.lda, n, w.W[k], n, n0, stage, [&](int b, int o, float xb) {
+          if (o < n0) xacc[b * ld0 + o] = k == L - 2 ? xb : xacc[b * ld0 + o] + xb;
+        });
+        // the a rows: a_bar_k = a_bar_{k+1} + p_bar_k (-A_k)^T in f32, into
+        // slot k (whose pz_k p_bar_k has taken up); p_bar_{k-1} from it
+        float* Ak = R + kTile * lay.slot[k];
+        const float* An = R + kTile * lay.slot[k + 1 < L - 1 ? k + 1 : k];  // a_bar_{k+1}
+        row16_layer<true>(pb, lay.lda, n, w.W[k] + (size_t)n0p * n, n, K, stage,
+                          [&](int b, int o, float abar) {
+          float v = 0.f;
+          if (o < K) {
+            const float an = (k == L - 2 ? bf16_round(ub[b]) * bf16_round(__ldg(wtop + o))
+                                         : An[b * ldk + o]) + abar;
+            Ak[b * ldk + o] = an;
+            v = an * cosf(Pp[b * ldk + o]) + Zp[b * ldk + o];
+            F[b * lay.ldm + o] = v;
+          }
+          ab[b * lay.lda + o] = __float2bfloat16_rn(v);
+        });
+      } else {
+        row16_layer<true>(pb, lay.lda, n, w.W[k], n, K, stage, [&](int b, int o, float abar) {
+          float v = 0.f;
+          if (o < K) {
+            v = abar * cosf(Pp[b * ldk + o]) + Zp[b * ldk + o];
+            F[b * lay.ldm + o] = v;
+          }
+          ab[b * lay.lda + o] = __float2bfloat16_rn(v);
+        });
+      }
       bf16* t = pb; pb = ab; ab = t;
     } else {
       row16_layer<true>(pb, lay.lda, n, w.W[0], n, n0, stage, [&](int b, int o, float abar) {
-        if (o < n0 && row0 + b < B) xbar[(size_t)(row0 + b) * n0 + o] = abar;
+        if (o < n0 && row0 + b < B)
+          xbar[(size_t)(row0 + b) * n0 + o] = NAIS ? abar + xacc[b * ld0 + o] : abar;
       });
     }
   }
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
+                 const float* __restrict__ zbar, float* __restrict__ xbar,
+                 bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
+                 const BwdLayout lay, int B) {
+  bwd_rows_tile<false>(x, ubar, zbar, xbar, ops, partials, w, lay, B);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+mlp_u_z_bwd_rows_nais(const float* __restrict__ x, const float* __restrict__ ubar,
+                      const float* __restrict__ zbar, float* __restrict__ xbar,
+                      bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
+                      const BwdLayout lay, int B) {
+  bwd_rows_tile<true>(x, ubar, zbar, xbar, ops, partials, w, lay, B);
 }
 
 // ---- cp.async, for the clustered row chain and the weight gradients ---------
@@ -1041,7 +1149,7 @@ mlp_u_z_bwd_wgrad(const bf16* __restrict__ ops, const float* __restrict__ partia
   const int L = w.L;
   int blk = blockIdx.x, k = 0;
   for (; k < L - 1; ++k) {
-    const int t = grad_tiles(w.width[k], w.width[k + 1]);
+    const int t = grad_tiles(lay.kin[k], w.width[k + 1]);
     if (blk < t) break;
     blk -= t;
   }
@@ -1055,7 +1163,7 @@ mlp_u_z_bwd_wgrad(const bf16* __restrict__ ops, const float* __restrict__ partia
     return;
   }
 
-  const int K = w.width[k], N = w.width[k + 1];
+  const int K = lay.kin[k], N = w.width[k + 1];
   const int lda = dnnpde_round16(K), ldb = dnnpde_round16(N);
   const int ntn = (N + kGradN - 1) / kGradN;
   const int m0 = (blk / ntn) * kGradM, n0 = (blk % ntn) * kGradN;
@@ -1148,7 +1256,14 @@ mlp_u_z_bwd_wgrad(const bf16* __restrict__ ops, const float* __restrict__ partia
 // the same scratch.
 extern "C" long long mlp_u_z_bwd_scratch_bytes(const int* widths, int L, int B) {
   if (L < 2 || L > DNNPDE_MAX_LAYERS || B <= 0) return -1;
-  return make_layout(widths, L, B).bytes;
+  return make_layout(widths, L, B, false).bytes;
+}
+
+// The same for the NAIS-Net's K2 (mlp_u_z_bwd_nais): its blocks' operands
+// are [x, a_k] and [z_bar, c_k].
+extern "C" long long mlp_u_z_bwd_nais_scratch_bytes(const int* widths, int L, int B) {
+  if (L < 3 || L > DNNPDE_MAX_LAYERS || B <= 0) return -1;
+  return make_layout(widths, L, B, true).bytes;
 }
 
 // Bytes of shared memory a CTA of the clustered row chain needs (design 1'),
@@ -1164,12 +1279,13 @@ namespace {
 // The row chain in either design, then the weight gradients.
 int launch(const float* x, const float* u_bar, const float* z_bar, float* x_bar, float* grads,
            void* scratch, const void* const* Ws, const void* const* bs, const int* widths, int L,
-           int B, void* stream, bool clustered) {
+           int B, void* stream, bool clustered, bool nais = false) {
   MlpWeights w;
   cudaError_t err = dnnpde_fill_weights(&w, Ws, bs, widths, L);
   if (err != cudaSuccess) return err;
   if (B <= 0 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) return cudaErrorInvalidValue;
-  const BwdLayout lay = make_layout(w.width, L, B);
+  if (nais && (clustered || L < 3)) return cudaErrorInvalidValue;
+  const BwdLayout lay = make_layout(w.width, L, B, nais);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* ops = static_cast<bf16*>(scratch);
   float* partials = reinterpret_cast<float*>(static_cast<char*>(scratch) + lay.part);
@@ -1195,20 +1311,23 @@ int launch(const float* x, const float* u_bar, const float* z_bar, float* x_bar,
                              partials, w, lay, cl, B);
     if (err != cudaSuccess) return err;
   } else {
-    const size_t smem =
+    size_t smem =
         sizeof(float) * ((size_t)kTile * (2 * (size_t)lay.hidden + lay.ldm) + kTile) +
         sizeof(bf16) * ((size_t)kRow16StageElems + 2 * (size_t)kTile * lay.lda);
+    // NAIS: the head's column sums of bf(a_{L-1}) bf(u_bar) and x_bar's sum over the blocks
+    if (nais)
+      smem += sizeof(float) * ((size_t)dnnpde_round4(w.width[L - 1]) +
+                               (size_t)kTile * dnnpde_round4(w.width[0]));
     if (smem > DNNPDE_MAX_SMEM) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(mlp_u_z_bwd_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const auto rows = nais ? mlp_u_z_bwd_rows_nais : mlp_u_z_bwd_rows;
+    err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    mlp_u_z_bwd_rows<<<lay.tiles, kTcThreads, smem, s>>>(x, u_bar, z_bar, x_bar, ops, partials,
-                                                         w, lay, B);
+    rows<<<lay.tiles, kTcThreads, smem, s>>>(x, u_bar, z_bar, x_bar, ops, partials, w, lay, B);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int blocks = (lay.ntail + kGradThreads - 1) / kGradThreads;
-  for (int k = 0; k < L - 1; ++k) blocks += grad_tiles(w.width[k], w.width[k + 1]);
+  for (int k = 0; k < L - 1; ++k) blocks += grad_tiles(lay.kin[k], w.width[k + 1]);
   mlp_u_z_bwd_wgrad<<<blocks, kGradThreads, 0, s>>>(ops, partials, grads, w, lay);
   return cudaGetLastError();
 }
@@ -1235,4 +1354,16 @@ extern "C" int mlp_u_z_bwd_cluster(const float* x, const float* u_bar, const flo
                                    const void* const* Ws, const void* const* bs,
                                    const int* widths, int L, int B, void* stream) {
   return launch(x, u_bar, z_bar, x_bar, grads, scratch, Ws, bs, widths, L, B, stream, true);
+}
+
+// K2 for the NAIS-Net, on the one-block row chain (mlp_u_z_bwd_rows_nais):
+// widths [n0, H, ..., H, 1] with at least one block, W_0 (n0 x H), each
+// block's (round16(n0) + H) x H ([U_k; 0; -A_k]) and W_{L-1} (H x 1); the
+// gradients in those shapes. scratch: mlp_u_z_bwd_nais_scratch_bytes bytes.
+extern "C" int mlp_u_z_bwd_nais(const float* x, const float* u_bar, const float* z_bar,
+                                float* x_bar, float* grads, void* scratch,
+                                const void* const* Ws, const void* const* bs,
+                                const int* widths, int L, int B, void* stream) {
+  return launch(x, u_bar, z_bar, x_bar, grads, scratch, Ws, bs, widths, L, B, stream, false,
+                true);
 }

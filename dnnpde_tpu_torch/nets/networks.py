@@ -9,6 +9,10 @@ is JAX's ``KKᵀ``) at every evaluation, as JAX does. Computing it once per
 loss instead made the order in which autograd sums its many gradient
 contributions depend on the process's history, so a captured training
 iteration was not bitwise equal to an eager one the first time it ran.
+The fused path (``params.extract_nais_params``) does project once per loss:
+there the N + 1 kernel calls of a loss are the projection's only consumers,
+and its captured iteration equals the eager one bit for bit
+(``tests/test_torch_cuda.py::test_captured_chunk_equals_eager_steps``).
 """
 
 from __future__ import annotations

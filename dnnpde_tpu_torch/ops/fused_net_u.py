@@ -12,6 +12,15 @@ is :class:`FusedMlpUZ`, the counterpart of
 kernel K1 and its backward the hand-derived first-order VJP on kernel K2
 (``ops/mlp_kernel.py``), both with bf16 dot operands. CPU tensors take the
 two kernels' plain versions.
+
+The NAIS-Net takes the same two paths (``nais_u_z`` and
+:class:`FusedNaisUZ`) with its weights in the kernels' layout
+(``params.extract_nais_params``): a block k is one layer on [x, a_k] with
+weight ``[U_k; 0; -A_k]`` and a residual,
+
+  forward:  a₁ = σ(x W₀ + b₀);  a_{k+1} = σ([x, a_k] W_k + b_k) + a_k
+  Z-sweep:  q_k = r_{k+1} ⊙ σ'(p_k);  r_k = r_{k+1} + q_k (−A_k)ᵀ;
+            Z = q₀ W₀ᵀ + Σ_k q_k U_kᵀ
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd
+from dnnpde_tpu_torch.ops.mlp_kernel import mlp_u_z_bwd, mlp_u_z_fwd, round16
 from dnnpde_tpu_torch.params import extract_mlp_params
 
 Tensor = torch.Tensor
@@ -49,6 +58,43 @@ def mlp_u_z(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor, act: str = "s
     return u, r
 
 
+def nais_u_z(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor, act: str = "sine"):
+    """Plain f32 NAIS-Net: (u (B,1), Z_full (B, n0)) for x = [t, X], with
+    the weights in the kernels' layout (the blocks' ``[U_k; 0; -A_k]``)."""
+    sig, dsig = _ACT_DERIVS[act]
+    L, n0 = len(Ws), x.shape[1]
+    n0p = round16(n0)
+    xp = torch.nn.functional.pad(x, (0, n0p - n0))
+    ps = [x @ Ws[0] + bs[0]]
+    a = sig(ps[0])
+    for k in range(1, L - 1):
+        ps.append(torch.cat([xp, a], dim=-1) @ Ws[k] + bs[k])
+        a = sig(ps[k]) + a
+    u = a @ Ws[L - 1] + bs[L - 1]
+    r = Ws[L - 1][:, 0].expand(x.shape[0], Ws[L - 1].shape[0])
+    zx = 0.0
+    for k in range(L - 2, 0, -1):
+        q = r * dsig(ps[k])
+        zx = zx + q @ Ws[k][:n0].T
+        r = r + q @ Ws[k][n0p:].T
+    return u, (r * dsig(ps[0])) @ Ws[0].T + zx
+
+
+def _fused_fwd(ctx, x: Tensor, wb, nais: bool):
+    L = len(wb) // 2
+    ctx.save_for_backward(x, *wb)
+    return mlp_u_z_fwd(list(wb[:L]), list(wb[L:]), x, nais=nais)
+
+
+def _fused_bwd(ctx, u_bar: Tensor, z_bar: Tensor, nais: bool):
+    x, *wb = ctx.saved_tensors
+    L = len(wb) // 2
+    W_bars, b_bars, x_bar = mlp_u_z_bwd(
+        wb[:L], wb[L:], x, u_bar.contiguous(), z_bar.contiguous(), nais=nais
+    )
+    return (x_bar, *W_bars, *b_bars)
+
+
 class FusedMlpUZ(torch.autograd.Function):
     """(u (B,1), Z_full (B,n0)) of a sine MLP at x = [t, X], differentiable
     once: ``FusedMlpUZ.apply(x, *Ws, *bs)``. Only (x, Ws, bs) are saved; the
@@ -56,32 +102,40 @@ class FusedMlpUZ(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: Tensor, *wb: Tensor):
-        L = len(wb) // 2
-        ctx.save_for_backward(x, *wb)
-        return mlp_u_z_fwd(list(wb[:L]), list(wb[L:]), x)
+        return _fused_fwd(ctx, x, wb, False)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, u_bar: Tensor, z_bar: Tensor):
-        x, *wb = ctx.saved_tensors
-        L = len(wb) // 2
-        W_bars, b_bars, x_bar = mlp_u_z_bwd(
-            wb[:L], wb[L:], x, u_bar.contiguous(), z_bar.contiguous()
-        )
-        return (x_bar, *W_bars, *b_bars)
+        return _fused_bwd(ctx, u_bar, z_bar, False)
+
+
+class FusedNaisUZ(torch.autograd.Function):
+    """:class:`FusedMlpUZ` for a sine NAIS-Net, its weights in the kernels'
+    layout (``params.extract_nais_params``): K1's and K2's NAIS forms."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, *wb: Tensor):
+        return _fused_fwd(ctx, x, wb, True)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u_bar: Tensor, z_bar: Tensor):
+        return _fused_bwd(ctx, u_bar, z_bar, True)
 
 
 def fused_u_z(Ws: Sequence[Tensor], bs: Sequence[Tensor], t: Tensor, X: Tensor,
-              act: str = "sine", backend: str = "torch"):
+              act: str = "sine", backend: str = "torch", nais: bool = False):
     """(u, Z) at (t, X) for the MLP with weights (Ws, bs) in the JAX layout
-    (``params.extract_mlp_params``): the fused path without the per-call
-    weight extraction, for callers that evaluate the same weights many
-    times (the rollout)."""
+    (``params.extract_mlp_params``), or with ``nais`` the NAIS-Net with its
+    weights in the kernels' layout (``params.extract_nais_params``): the
+    fused path without the per-call weight extraction, for callers that
+    evaluate the same weights many times (a loss, the rollout)."""
     x = torch.cat([t, X], dim=-1).contiguous()
     if backend == "torch":
-        u, z_full = mlp_u_z(Ws, bs, x, act)
+        u, z_full = (nais_u_z if nais else mlp_u_z)(Ws, bs, x, act)
     else:
-        u, z_full = FusedMlpUZ.apply(x, *Ws, *bs)
+        u, z_full = (FusedNaisUZ if nais else FusedMlpUZ).apply(x, *Ws, *bs)
     return u, z_full[:, 1:]  # drop the t column
 
 

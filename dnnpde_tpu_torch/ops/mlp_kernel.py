@@ -21,6 +21,14 @@ and raise on anything they do not take. For CPU tensors they compute the
 plain versions, ``mlp_u_z_fwd_reference`` and ``mlp_u_z_bwd_reference``: the
 same bf16-operand math in PyTorch, which differs from the kernels only in
 the order of summation.
+
+With ``nais=True`` each takes the NAIS-Net instead (the kernels' NAIS
+instantiations, ``mlp_u_z_fwd_nais_kernel`` and ``mlp_u_z_bwd_rows_nais``):
+layer 0 maps x = [t, X] to a_1 = sin(x W_0 + b_0); each block k of 1 .. L-2
+is a_{k+1} = sin([x, a_k] W_k + b_k) + a_k with W_k = [U_k; 0; -A_k]
+(:func:`nais_block_weight`), and u = a_{L-1} W_{L-1} + b_{L-1}; its widths
+are [n0, H, ..., H, 1] with at least one block. K2's row chain runs it on
+the one-block design.
 """
 
 from __future__ import annotations
@@ -50,15 +58,34 @@ def bf16_dot(a: Tensor, w: Tensor) -> Tensor:
     return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
 
 
-def check_mlp(Ws: Sequence[Tensor], bs: Sequence[Tensor], device: torch.device) -> list[int]:
-    """Validate a sine-MLP weight list for the kernels; returns the widths
-    [n0, n1, ..., 1]."""
-    if len(Ws) != len(bs) or not 2 <= len(Ws) <= MAX_LAYERS:
-        raise ValueError(f"need 2..{MAX_LAYERS} layers with one bias each, got {len(Ws)}/{len(bs)}")
+def round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def nais_block_weight(U: Tensor, minus_A: Tensor) -> Tensor:
+    """A NAIS-Net block's weight in the kernels' layout, ``[U; 0; -A]``:
+    the input injection U (n0, H), zero rows up to round16(n0), then -A
+    (H, H), so that the block is one layer on [x padded to round16(n0), a]."""
+    n0, H = U.shape
+    pad = U.new_zeros((round16(n0) - n0, H))
+    return torch.cat([U, pad, minus_A], dim=0).contiguous()
+
+
+def check_mlp(Ws: Sequence[Tensor], bs: Sequence[Tensor], device: torch.device,
+              nais: bool = False) -> list[int]:
+    """Validate a sine-MLP weight list for the kernels (with ``nais``, a
+    NAIS-Net's: uniform hidden widths, at least one block, each block's
+    weight ``(round16(n0) + H, H)``); returns the widths [n0, n1, ..., 1]."""
+    if len(Ws) != len(bs) or not (3 if nais else 2) <= len(Ws) <= MAX_LAYERS:
+        raise ValueError(f"need {3 if nais else 2}..{MAX_LAYERS} layers with one bias each, "
+                         f"got {len(Ws)}/{len(bs)}")
     widths = [int(Ws[0].shape[0])]
     for k, (W, b) in enumerate(zip(Ws, bs)):
-        if W.dim() != 2 or W.shape[0] != widths[-1]:
-            raise ValueError(f"Ws[{k}] has shape {tuple(W.shape)}, expected ({widths[-1]}, n)")
+        rows = widths[-1]
+        if nais and 0 < k < len(Ws) - 1:
+            rows = round16(widths[0]) + widths[-1]
+        if W.dim() != 2 or W.shape[0] != rows:
+            raise ValueError(f"Ws[{k}] has shape {tuple(W.shape)}, expected ({rows}, n)")
         if b.shape != (W.shape[1],):
             raise ValueError(f"bs[{k}] has shape {tuple(b.shape)}, expected ({W.shape[1]},)")
         for name, t in ((f"Ws[{k}]", W), (f"bs[{k}]", b)):
@@ -69,22 +96,43 @@ def check_mlp(Ws: Sequence[Tensor], bs: Sequence[Tensor], device: torch.device) 
         widths.append(int(W.shape[1]))
     if widths[-1] != 1:
         raise ValueError(f"the output layer must be 1 wide, got {widths[-1]}")
+    if nais and any(n != widths[1] for n in widths[2:-1]):
+        raise ValueError(f"a NAIS-Net's hidden widths must be uniform, got {widths}")
     return widths
 
 
-def mlp_u_z_fwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
+def _pad16(x: Tensor) -> Tensor:
+    """x (B, n) with zero columns up to round16(n)."""
+    return torch.nn.functional.pad(x, (0, round16(x.shape[1]) - x.shape[1]))
+
+
+def mlp_u_z_fwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
+                          nais: bool = False):
     """Plain version of K1: (u (B,1), Z_full (B,n0)) with bf16 dot operands."""
     L = len(Ws)
+    n0 = x.shape[1]
+    xp = _pad16(x)
     a, ps = x, []
     for k in range(L - 1):
-        p = bf16_dot(a, Ws[k]) + bs[k]
+        if nais and k > 0:
+            p = bf16_dot(torch.cat([xp, a], dim=1), Ws[k]) + bs[k]
+            a = torch.sin(p) + a
+        else:
+            p = bf16_dot(a, Ws[k]) + bs[k]
+            a = torch.sin(p)
         ps.append(p)
-        a = torch.sin(p)
     u = bf16_dot(a, Ws[L - 1]) + bs[L - 1]
     r = Ws[L - 1][:, 0].expand(x.shape[0], -1)
+    zx = None
     for k in range(L - 2, -1, -1):
-        r = bf16_dot(r * torch.cos(ps[k]), Ws[k].T)
-    return u, r
+        q = r * torch.cos(ps[k])
+        if nais and k > 0:
+            s = bf16_dot(q, Ws[k].T)  # (B, round16(n0) + H): the x rows, then the a rows
+            zx = s[:, :n0] if zx is None else zx + s[:, :n0]
+            r = r + s[:, round16(n0):]
+        else:
+            r = bf16_dot(q, Ws[k].T)
+    return u, (r + zx if nais else r)
 
 
 def _lib(name: str):
@@ -94,14 +142,16 @@ def _lib(name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         n_ptrs = {"mlp_u_z_fwd": 6, "mlp_u_z_bwd": 9}[name]
-        entries = [fn] + ([lib.mlp_u_z_bwd_cluster] if name == "mlp_u_z_bwd" else [])
+        entries = [fn, getattr(lib, f"{name}_nais")]
+        if name == "mlp_u_z_bwd":
+            entries.append(lib.mlp_u_z_bwd_cluster)
         for entry in entries:
             entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             entry.restype = ctypes.c_int
         if name == "mlp_u_z_bwd":
-            size = lib.mlp_u_z_bwd_scratch_bytes
-            size.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            size.restype = ctypes.c_longlong
+            for size in (lib.mlp_u_z_bwd_scratch_bytes, lib.mlp_u_z_bwd_nais_scratch_bytes):
+                size.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                size.restype = ctypes.c_longlong
             smem = lib.mlp_u_z_bwd_cluster_smem_bytes
             smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
             smem.restype = ctypes.c_longlong
@@ -117,16 +167,17 @@ def _check_rows(name: str, t: Tensor, shape: tuple[int, int], device: torch.devi
         )
 
 
-def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
-    """(u (B,1), Z_full (B,n0)) for a sine MLP at x = [t, X] (B, n0).
+def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor, nais: bool = False):
+    """(u (B,1), Z_full (B,n0)) for a sine MLP (with ``nais``, a NAIS-Net)
+    at x = [t, X] (B, n0).
 
     CUDA tensors launch K1 on the current stream; CPU tensors take
     :func:`mlp_u_z_fwd_reference`."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 (B, n0) tensor, got {x.dtype} {tuple(x.shape)}")
-    widths = check_mlp(Ws, bs, x.device)
+    widths = check_mlp(Ws, bs, x.device, nais)
     if x.device.type == "cpu":
-        return mlp_u_z_fwd_reference(Ws, bs, x)
+        return mlp_u_z_fwd_reference(Ws, bs, x, nais)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_u_z_fwd runs on CUDA or CPU tensors, got {x.device}")
     from dnnpde_tpu_torch.ops import _build
@@ -137,65 +188,75 @@ def mlp_u_z_fwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor):
     if B == 0:
         return u, z
     lib = _lib("mlp_u_z_fwd")
+    entry = "mlp_u_z_fwd_nais" if nais else "mlp_u_z_fwd"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.mlp_u_z_fwd(
+        code = getattr(lib, entry)(
             x.data_ptr(), u.data_ptr(), z.data_ptr(),
             _build.pointer_array(Ws), _build.pointer_array(bs),
             _build.int_array(widths), len(Ws), B, stream,
         )
-    _build.check(lib, code, "mlp_u_z_fwd")
+    _build.check(lib, code, entry)
     tracing.count("ops.mlp_u_z_fwd.calls")
+    if nais:
+        tracing.count("ops.mlp_u_z_fwd.nais_calls")
     return u, z
 
 
 def mlp_u_z_bwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
-                          u_bar: Tensor, z_bar: Tensor):
+                          u_bar: Tensor, z_bar: Tensor, nais: bool = False):
     """Plain version of K2: (W_bars, b_bars, x_bar) for cotangents
     (u_bar (B,1), z_bar (B,n0)) of K1's outputs, with bf16 dot operands
-    (the math of ``dnnpde_tpu/ops/fused_net_u.py:14-23``)."""
+    (the math of ``dnnpde_tpu/ops/fused_net_u.py:14-23``; with ``nais``, of
+    ``csrc/mlp_u_z_bwd.cu``'s NAIS-Net note)."""
     L = len(Ws)
-    a, ps, as_ = x, [], [x]
+    n0p = round16(x.shape[1])
+    block = lambda k: nais and 0 < k < L - 1  # noqa: E731
+    a, ps, ins = x, [], []  # ins[k]: layer k's A operand
     for k in range(L - 1):
-        p = bf16_dot(a, Ws[k]) + bs[k]
+        ins.append(torch.cat([_pad16(x), a], dim=1) if block(k) else a)
+        p = bf16_dot(ins[k], Ws[k]) + bs[k]
         ps.append(p)
-        a = torch.sin(p)
-        as_.append(a)
+        a = torch.sin(p) + a if block(k) else torch.sin(p)
     rs = [None] * L
     rs[L - 1] = Ws[L - 1][:, 0].expand(x.shape[0], -1)
     for k in range(L - 2, 0, -1):
-        rs[k] = bf16_dot(rs[k + 1] * torch.cos(ps[k]), Ws[k].T)
+        s = bf16_dot(rs[k + 1] * torch.cos(ps[k]), Ws[k].T)
+        rs[k] = rs[k + 1] + s[:, n0p:] if block(k) else s
 
     # Z-path adjoint (ascending): c is the cotangent of r_k
     W_bars, b_bars, pz = [None] * L, [None] * L, [None] * (L - 1)
     c = z_bar
     for k in range(L - 1):
-        q_bar = bf16_dot(c, Ws[k])
-        W_bars[k] = bf16_dot(c.T, rs[k + 1] * torch.cos(ps[k]))
+        op = torch.cat([_pad16(z_bar), c], dim=1) if block(k) else c
+        q_bar = bf16_dot(op, Ws[k])
+        W_bars[k] = bf16_dot(op.T, rs[k + 1] * torch.cos(ps[k]))
         pz[k] = -q_bar * rs[k + 1] * torch.sin(ps[k])
-        c = q_bar * torch.cos(ps[k])
+        c = c + q_bar * torch.cos(ps[k]) if block(k) else q_bar * torch.cos(ps[k])
 
     # u-path (descending), merged with the Z-path's pz
     a_bar = bf16_dot(u_bar, Ws[L - 1].T)
-    W_bars[L - 1] = c.sum(0)[:, None] + bf16_dot(as_[L - 1].T, u_bar)
+    W_bars[L - 1] = c.sum(0)[:, None] + bf16_dot(a.T, u_bar)
     b_bars[L - 1] = u_bar.sum(0)
+    x_sum = None  # the blocks' share of x_bar
     for k in range(L - 2, -1, -1):
         p_bar = a_bar * torch.cos(ps[k]) + pz[k]
-        W_bars[k] = W_bars[k] + bf16_dot(as_[k].T, p_bar)
+        W_bars[k] = W_bars[k] + bf16_dot(ins[k].T, p_bar)
         b_bars[k] = p_bar.sum(0)
-        a_bar = bf16_dot(p_bar, Ws[k].T)
-    return tuple(W_bars), tuple(b_bars), a_bar
-
-
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
+        s = bf16_dot(p_bar, Ws[k].T)
+        if block(k):
+            x_sum = s[:, :x.shape[1]] if x_sum is None else x_sum + s[:, :x.shape[1]]
+            a_bar = a_bar + s[:, n0p:]
+        else:
+            a_bar = s
+    return tuple(W_bars), tuple(b_bars), (a_bar + x_sum if nais else a_bar)
 
 
 def _cluster_cols(n: int) -> int:
     """Columns of a width-n layer that one CTA of K2's clusters owns: its
     8-column tiles, ``ceil(round16(n) / 8 / CLUSTER_CTAS)`` rounded up to a
     power of two."""
-    tiles = (_round16(n) // 8 + CLUSTER_CTAS - 1) // CLUSTER_CTAS
+    tiles = (round16(n) // 8 + CLUSTER_CTAS - 1) // CLUSTER_CTAS
     return 8 * (1 << (tiles - 1).bit_length())
 
 
@@ -210,7 +271,7 @@ def bwd_cluster_smem_bytes(widths: Sequence[int]) -> int:
     L = len(widths) - 1
     lw = [_cluster_cols(n) for n in widths]
     slices = sum(2 * CLUSTER_CTAS * lw[k] * (lw[k + 1] + 8) for k in range(L - 1))
-    inputs = 8 + 2 * 16 * _round16(widths[0]) + 16 + sum(lw[1:L]) + lw[L - 1]
+    inputs = 8 + 2 * 16 * round16(widths[0]) + 16 + sum(lw[1:L]) + lw[L - 1]
     stage = max(widths[k] * lw[k + 1] for k in range(L - 1))
     lwmax = max(lw[:L])
     operands = 3 * CLUSTER_CTAS * 16 * (lwmax + 8)
@@ -218,19 +279,21 @@ def bwd_cluster_smem_bytes(widths: Sequence[int]) -> int:
     return 2 * slices + 4 * inputs + max(steady, 4 * 2 * stage)
 
 
-def bwd_takes_cluster(widths: Sequence[int], B: int) -> bool:
+def bwd_takes_cluster(widths: Sequence[int], B: int, nais: bool = False) -> bool:
     """Whether K2's row chain runs on thread-block clusters for B rows of a
     net of these widths: where a CTA's slices and state fit its shared
     memory and B is at most ``CLUSTER_MAX_ROWS``. Both row chains give the
-    same bits; this chooses the faster."""
-    return B <= CLUSTER_MAX_ROWS and bwd_cluster_smem_bytes(widths) <= MAX_SMEM
+    same bits; this chooses the faster. A NAIS-Net's blocks take the
+    one-block design only: never."""
+    return (not nais and B <= CLUSTER_MAX_ROWS
+            and bwd_cluster_smem_bytes(widths) <= MAX_SMEM)
 
 
 def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
                 u_bar: Tensor, z_bar: Tensor, widths: Sequence[int]):
     """K2 through the C entry point ``entry`` (``mlp_u_z_bwd``, the one-block
-    row chain, or ``mlp_u_z_bwd_cluster``) on checked CUDA inputs; the
-    gradients come back as views of one flat buffer."""
+    row chain, ``mlp_u_z_bwd_cluster`` or ``mlp_u_z_bwd_nais``) on checked
+    CUDA inputs; the gradients come back as views of one flat buffer."""
     from dnnpde_tpu_torch.ops import _build
 
     B, n0 = x.shape
@@ -245,8 +308,9 @@ def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tenso
     lib = _lib("mlp_u_z_bwd")
     widths_c = _build.int_array(widths)
     # the weight gradients' bf16 operands and the per-tile column sums
-    scratch = torch.empty(lib.mlp_u_z_bwd_scratch_bytes(widths_c, len(Ws), B),
-                          dtype=torch.uint8, device=x.device)
+    size = lib.mlp_u_z_bwd_nais_scratch_bytes if entry.endswith("_nais") else \
+        lib.mlp_u_z_bwd_scratch_bytes
+    scratch = torch.empty(size(widths_c, len(Ws), B), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = getattr(lib, entry)(
@@ -260,9 +324,10 @@ def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tenso
 
 
 def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
-                u_bar: Tensor, z_bar: Tensor):
+                u_bar: Tensor, z_bar: Tensor, nais: bool = False):
     """(W_bars, b_bars, x_bar): the gradients of <u, u_bar> + <Z_full, z_bar>
-    for a sine MLP at x = [t, X] (B, n0), in the shapes of Ws, bs and x.
+    for a sine MLP (with ``nais``, a NAIS-Net) at x = [t, X] (B, n0), in the
+    shapes of Ws, bs and x.
 
     CUDA tensors launch K2 on the current stream (the gradients come back
     as views of one flat buffer), its row chain on clusters where
@@ -273,16 +338,18 @@ def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
     B, n0 = x.shape
     _check_rows("u_bar", u_bar, (B, 1), x.device)
     _check_rows("z_bar", z_bar, (B, n0), x.device)
-    widths = check_mlp(Ws, bs, x.device)
+    widths = check_mlp(Ws, bs, x.device, nais)
     if x.device.type == "cpu":
-        return mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar)
+        return mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_u_z_bwd runs on CUDA or CPU tensors, got {x.device}")
-    clustered = bwd_takes_cluster(widths, B)
-    out = _bwd_launch("mlp_u_z_bwd_cluster" if clustered else "mlp_u_z_bwd",
-                      Ws, bs, x, u_bar, z_bar, widths)
+    clustered = bwd_takes_cluster(widths, B, nais)
+    entry = "mlp_u_z_bwd_nais" if nais else "mlp_u_z_bwd_cluster" if clustered else "mlp_u_z_bwd"
+    out = _bwd_launch(entry, Ws, bs, x, u_bar, z_bar, widths)
     if B > 0:
         tracing.count("ops.mlp_u_z_bwd.calls")
         if clustered:
             tracing.count("ops.mlp_u_z_bwd.cluster_calls")
+        if nais:
+            tracing.count("ops.mlp_u_z_bwd.nais_calls")
     return out

@@ -21,7 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dnnpde_tpu_torch.nets.networks import MLP, Dense, NaisNet, ResNet, SDENet, VerletNet
+from dnnpde_tpu_torch.nets.networks import (
+    MLP, Dense, NaisNet, ResNet, SDENet, VerletNet, _nais_project,
+)
 
 
 def _index(name: str) -> int:
@@ -142,3 +144,23 @@ def extract_mlp_params(module: MLP) -> tuple[tuple[torch.Tensor, ...], tuple[tor
     Ws = tuple(layer.linear.weight.t().contiguous() for layer in module.dense)
     bs = tuple(layer.linear.bias for layer in module.dense)
     return Ws, bs
+
+
+def extract_nais_params(module: ResNet) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
+    """A NAIS-Net's (Ws, bs) in the layout of the fused path's kernels
+    (``ops/mlp_kernel.py``): the input layer (n0, H), each block's
+    ``[U_i; 0; -A_i]`` (round16(n0) + H, H) with ``A_i`` the stability
+    projection of its weight (``nets.networks._nais_project``, f32) and
+    ``U_i`` its input injection, bias ``b_i + c_i``; then the head (H, 1).
+    The tensors stay on the module's device and in its autograd graph, so
+    one call per loss differentiates through the projections once."""
+    from dnnpde_tpu_torch.ops.mlp_kernel import nais_block_weight
+
+    Ws = [module.inp.linear.weight.t().contiguous()]
+    bs = [module.inp.linear.bias]
+    for block, inject in zip(module.blocks, module.inject):
+        Ws.append(nais_block_weight(inject.linear.weight.t(), -_nais_project(block.weight)))
+        bs.append(block.bias + inject.linear.bias)
+    Ws.append(module.out.linear.weight.t().contiguous())
+    bs.append(module.out.linear.bias)
+    return tuple(Ws), tuple(bs)

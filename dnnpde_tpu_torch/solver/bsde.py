@@ -63,7 +63,9 @@ class SolverConfig:
       True or "torch" = the fused f32 ``mlp_u_z`` (sine/tanh/relu),
       differentiated by autograd; "cuda" = the fused kernel pair K1 + K2
       (sine; ``ops/fused_net_u.py::FusedMlpUZ``), the counterpart of JAX's
-      "pallas". Plain MLPs without an output transform only.
+      "pallas". Plain MLPs, and NAIS-Nets with at least one block
+      (``FusedNaisUZ``; the blocks' projections computed once per loss),
+      without an output transform only.
     objective: "global" (the reference's summed residual, gradients through
       both sides of every residual) or "local" (backward induction: each
       one-step prediction Ỹ_{n+1} regresses onto a detached target,
@@ -211,7 +213,8 @@ def _check_config(problem: PDEProblem, config: SolverConfig) -> None:
 def _bind_net_u(problem: PDEProblem, net, config: SolverConfig,
                 functional: bool = False) -> Callable:
     """module → net_u(t, X, noise=None) for one loss evaluation. The fused path extracts
-    the weights once here, not at each of the N+1 evaluations."""
+    the weights once here, not at each of the N+1 evaluations (a NAIS-Net's
+    projections too, under the span ``dnnpde.nets.nais_project``)."""
     if functional:
         if config.fused_net_u or config.remat:
             raise ValueError(
@@ -220,22 +223,32 @@ def _bind_net_u(problem: PDEProblem, net, config: SolverConfig,
         return lambda module: make_functional_net_u(module, transform=problem.transform_u)
     if not config.fused_net_u:
         return lambda module: make_net_u(module, transform=problem.transform_u)
-    from dnnpde_tpu_torch.nets.networks import MLP
+    from dnnpde_tpu_torch import tracing
+    from dnnpde_tpu_torch.nets.networks import MLP, ResNet
     from dnnpde_tpu_torch.ops.fused_net_u import check_fused, fused_u_z
-    from dnnpde_tpu_torch.params import extract_mlp_params
+    from dnnpde_tpu_torch.params import extract_mlp_params, extract_nais_params
 
-    if problem.has_output_transform or config.stochastic_net or not isinstance(net, MLP):
-        raise ValueError("fused_net_u supports plain MLPs without output transform")
+    nais = isinstance(net, ResNet) and net.stable and len(net.blocks) > 0
+    if problem.has_output_transform or config.stochastic_net or not (
+            isinstance(net, MLP) or nais):
+        raise ValueError("fused_net_u supports plain MLPs and NAIS-Nets with at least one "
+                         "block, without output transform")
     backend = "torch" if config.fused_net_u is True else str(config.fused_net_u)
     act = check_fused(net.activation, backend)
     n_dense = len(net.layers) - 1
 
+    def weights(module):
+        if not nais:
+            return extract_mlp_params(module)
+        with tracing.span("dnnpde.nets.nais_project"):
+            return extract_nais_params(module)
+
     def bind(module):
-        Ws, bs = extract_mlp_params(module)
+        Ws, bs = weights(module)
         if len(Ws) != n_dense:
             raise ValueError(f"net has {len(Ws)} layers, expected {n_dense}")
-        fused = functools.partial(fused_u_z, Ws, bs, act=act, backend=backend)
-        return lambda t, X, noise=None: fused(t, X)  # a plain MLP takes no noise
+        fused = functools.partial(fused_u_z, Ws, bs, act=act, backend=backend, nais=nais)
+        return lambda t, X, noise=None: fused(t, X)  # a fused net takes no noise
 
     return bind
 

@@ -10,13 +10,14 @@ without JAX it runs on its own:
 from __future__ import annotations
 
 import ctypes
+import hashlib
 
 import numpy as np
 import pytest
 import torch
 
 from dnnpde_tpu_torch import tracing
-from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ
+from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ, FusedNaisUZ
 from dnnpde_tpu_torch.ops.mlp_kernel import (
     MAX_SMEM,
     _bwd_launch,
@@ -375,6 +376,142 @@ def _check_k4(device, args, chol, tile_m=256):
 # pairs, whose micro-tiles no longer fill a warp with one asset group. D = 1
 # and 7 are ragged: S_T's rows are not 16-byte aligned and the last group is
 # partial.
+# K1 and K2 of the MLP at full width (_full_width's inputs at seed B): the
+# SHA-256 (first 16 hex digits) of (u, Z) and of (W_bars, b_bars, x_bar),
+# as the kernels gave them before the NAIS-Net joined their sources (an
+# H100 80GB HBM3): the MLP's instantiation is the same code, bit for bit.
+MLP_DIGESTS = {
+    1: ("eb81472b39ef8b7c", "0298a5c5d701fb85"),
+    17: ("b791896393078e6f", "927a7d50de9ca048"),
+    100: ("844930ee0e44734f", "a12e25f6b263b7dd"),
+    129: ("fc942a0a0c85037b", "e3e07d27cb2c73e9"),
+    512: ("43d4806e986ba859", "0a85bec4144d9454"),
+    2048: ("58f5f1dbe48c6113", "bb30f5e2cd3e2679"),
+}
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("B", sorted(MLP_DIGESTS))
+def test_the_mlps_kernels_give_the_bits_they_gave(cuda_device, B):
+    Ws, bs, x, u_bar, z_bar = _full_width(cuda_device, B, seed=B)
+    u, z = mlp_u_z_fwd(Ws, bs, x)
+    W_bars, b_bars, x_bar = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar)
+    torch.cuda.synchronize()
+    assert (_digest([u, z]), _digest([*W_bars, *b_bars, x_bar])) == MLP_DIGESTS[B]
+
+
+def _nais_full_width(device, B, seed):
+    """A NAIS-Net at [101, 256×4, 1] in the kernels' layout (the port's net
+    drawn from ``seed``, biases N(0, 0.1²), its projections through
+    ``extract_nais_params``), and inputs of B rows."""
+    from dnnpde_tpu_torch.nets.networks import build_network
+    from dnnpde_tpu_torch.params import extract_nais_params
+
+    gen = torch.Generator().manual_seed(seed)
+    net = build_network("Naisnet", FULL, "Sine", generator=gen, device=device)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        Ws, bs = (tuple(t.detach().contiguous() for t in ts) for ts in extract_nais_params(net))
+    rng = np.random.default_rng(seed)
+    x, u_bar, z_bar = _on(device, [rng.normal(size=s).astype(np.float32)
+                                   for s in ((B, FULL[0]), (B, 1), (B, FULL[0]))])
+    return Ws, bs, x, u_bar, z_bar
+
+
+def _nais_counts():
+    return [_calls(k, c) for k in ("mlp_u_z_fwd", "mlp_u_z_bwd") for c in ("calls", "nais_calls")] \
+        + [_calls("mlp_u_z_bwd", "cluster_calls")]
+
+
+@pytest.mark.parametrize("B", [1, 17, 100, 129, 512])
+def test_nais_k1_and_k2_match_their_plain_versions_and_repeat_bitwise(cuda_device, B):
+    """K1's and K2's NAIS forms against their plain versions, twice each:
+    close, and the same bits both times. K2 runs the block on its one-block
+    row chain only (``bwd_takes_cluster`` is false for it at every B), so no
+    second design's bits are compared; its NAIS calls count as K2 calls and
+    none as clustered."""
+    Ws, bs, x, u_bar, z_bar = _nais_full_width(cuda_device, B, seed=B)
+    assert check_mlp(Ws, bs, x.device, nais=True) == FULL
+    assert not bwd_takes_cluster(FULL, B, nais=True)
+    before = _nais_counts()
+    fwd = [mlp_u_z_fwd(Ws, bs, x, nais=True) for _ in range(2)]
+    bwd = [mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_nais_counts(), before)] == [2, 2, 2, 2, 0]
+    ref = [*mlp_u_z_fwd_reference(Ws, bs, x, nais=True),
+           *(lambda o: [*o[0], *o[1], o[2]])(
+               mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=True))]
+    runs = [[*f, *b[0], *b[1], b[2]] for f, b in zip(fwd, bwd)]
+    for a, again, r in zip(*runs, ref, strict=True):
+        _assert_kernel_close(a, r)
+        assert torch.equal(a, again)
+
+
+def test_nais_k2_recomputes_k1s_forward_exactly(cuda_device):
+    """test_k2_recomputes_k1s_forward_exactly for the NAIS-Net: with u_bar
+    the one-hot of row r and z_bar = 0, K2's gradient of the head is the
+    bf16 of the f32 residual stream a_{L-1} it recomputed for row r, and
+    K1's u[r] is the head over the stream K1 computed."""
+    B = 32
+    Ws, bs, x, _, _ = _nais_full_width(cuda_device, B, seed=11)
+    u, _ = mlp_u_z_fwd(Ws, bs, x, nais=True)
+    w_head = Ws[-1][:, 0].to(torch.bfloat16).double()
+    z_bar = torch.zeros_like(x)
+    for r in range(B):
+        u_bar = torch.zeros(B, 1, device=cuda_device)
+        u_bar[r] = 1.0
+        W_bars, _, _ = mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True)
+        a = W_bars[-1][:, 0]
+        assert torch.equal(a, a.to(torch.bfloat16).float())
+        terms = a.double() * w_head
+        u_r = float(terms.sum()) + float(bs[-1][0])
+        scale = float(terms.abs().sum()) + abs(float(bs[-1][0]))
+        assert abs(float(u[r, 0]) - u_r) <= 1e-6 * scale, f"row {r}"
+
+
+def _nais_function_grads(device, Ws, bs, x):
+    """The gradients of a loss that feeds Z back in, through FusedNaisUZ on
+    ``device`` (K1 + K2 on the card, their plain versions on the CPU)."""
+    wb = [t.detach().to(device).requires_grad_(True) for t in (*Ws, *bs)]
+    x_d = x.detach().to(device).requires_grad_(True)
+    u, z = FusedNaisUZ.apply(x_d, *wb)
+    u2, z2 = FusedNaisUZ.apply((x_d + 0.1 * z).contiguous(), *wb)
+    loss = (u2 * u).sum() + (z2 * z).sum()
+    return [g.cpu() for g in torch.autograd.grad(loss, [x_d, *wb])]
+
+
+def test_fused_nais_function_gradients_match_plain_function(cuda_device):
+    """FusedNaisUZ on the card against the same Function on the CPU. Each
+    gradient is a sum over the 64 rows and the loss's two passes, so one
+    leaf can cancel to far below its terms (the head's bias: one element),
+    and its error is a bf16 step of the terms, not of the sum: the bound is
+    on each leaf's norm, relative to the larger of its own and the median
+    leaf's, as the benchmark's leaf gaps are. On an H100 the largest leaf
+    reads 1.2e-4; leaving one block's U_i term out of the plain version
+    moves every leaf by 0.19 to 0.70."""
+    Ws, bs, x, _, _ = _nais_full_width(cuda_device, 64, seed=9)
+    before = (_calls("mlp_u_z_fwd", "nais_calls"), _calls("mlp_u_z_bwd", "nais_calls"))
+    on_card = _nais_function_grads(cuda_device, Ws, bs, x)
+    torch.cuda.synchronize()
+    assert (_calls("mlp_u_z_fwd", "nais_calls"), _calls("mlp_u_z_bwd", "nais_calls")) == (
+        before[0] + 2, before[1] + 2)
+    plain = _nais_function_grads("cpu", Ws, bs, x)
+    norms = [float(torch.linalg.vector_norm(r)) for r in plain]
+    median = sorted(norms)[len(norms) // 2]
+    for k, (a, r, n) in enumerate(zip(on_card, plain, norms, strict=True)):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all())
+        gap = float(torch.linalg.vector_norm(a - r)) / max(n, median)
+        assert gap <= 1e-2, (k, gap)
+
+
 @pytest.mark.parametrize("D", [1, 7, 100, 256, 1024])
 @pytest.mark.parametrize("correlated", [False, True])
 def test_k4_matches_plain_version_and_repeats_bitwise(cuda_device, D, correlated):
@@ -411,6 +548,7 @@ def test_k4_matches_plain_version_with_a_partial_last_block(cuda_device, correla
 
 CHUNK_D, CHUNK_M, CHUNK_N = 8, 16, 6
 CHUNK_LAYERS = [CHUNK_D + 1, 64, 64, 1]
+CHUNK_NAIS_LAYERS = [CHUNK_D + 1, 64, 64, 64, 1]
 
 
 def _clamped_bsb():
@@ -428,13 +566,17 @@ def _clamped_bsb():
     return ClampedBSB(D=CHUNK_D)
 
 
-def _chunk_trainer(device, backend, seed=0, remat=False, prob=None, remat_policy=None, **kw):
+def _chunk_trainer(device, backend, seed=0, remat=False, prob=None, remat_policy=None,
+                   nais=False, **kw):
     from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
     from dnnpde_tpu_torch.solver import SolverConfig
     from dnnpde_tpu_torch.train import Trainer
 
     config = SolverConfig(fused_net_u=backend, remat=remat, remat_policy=remat_policy)
-    return Trainer(prob or BlackScholesBarenblatt(D=CHUNK_D), M=CHUNK_M, N=CHUNK_N, layers=CHUNK_LAYERS,
+    if nais:  # a NAIS-Net of two blocks, sine
+        kw.update(mode="Naisnet", activation="Sine")
+    layers = CHUNK_NAIS_LAYERS if nais else CHUNK_LAYERS
+    return Trainer(prob or BlackScholesBarenblatt(D=CHUNK_D), M=CHUNK_M, N=CHUNK_N, layers=layers,
                    seed=seed, device=device, ema_decay=0.9, solver_config=config, **kw)
 
 
@@ -462,14 +604,18 @@ def _last_chunk(tr, k):
     return chunk.losses[:k], chunk.y0s[:k]
 
 
-@pytest.mark.parametrize("backend,guard,best,remat", [
-    ("cuda", False, False, False), ("cuda", True, False, False), ("cuda", True, True, False),
-    (False, False, False, False), (False, True, False, False), (False, False, True, False),
-    (False, False, False, True),
-], ids=["k1k2", "k1k2-guard", "k1k2-guard-best", "f32", "f32-guard", "f32-best", "f32-remat"])
-def test_captured_chunk_equals_eager_steps(cuda_device, backend, guard, best, remat):
+@pytest.mark.parametrize("backend,guard,best,remat,nais", [
+    ("cuda", False, False, False, False), ("cuda", True, False, False, False),
+    ("cuda", True, True, False, False),
+    (False, False, False, False, False), (False, True, False, False, False),
+    (False, False, True, False, False), (False, False, False, True, False),
+    ("cuda", False, False, False, True), ("cuda", True, True, False, True),
+    ("torch", False, False, False, True),
+], ids=["k1k2", "k1k2-guard", "k1k2-guard-best", "f32", "f32-guard", "f32-best", "f32-remat",
+        "nais-k1k2", "nais-k1k2-guard-best", "nais-torch"])
+def test_captured_chunk_equals_eager_steps(cuda_device, backend, guard, best, remat, nais):
     k = 8
-    kw = dict(nan_guard=guard, track_best=best, remat=remat)
+    kw = dict(nan_guard=guard, track_best=best, remat=remat, nais=nais)
     captured, eager = _chunk_trainer(cuda_device, backend, **kw), _chunk_trainer(cuda_device,
                                                                                    backend, **kw)
     fwd, bwd = _calls("mlp_u_z_fwd"), _calls("mlp_u_z_bwd")

@@ -211,3 +211,56 @@ def test_a_rollout_request_holds_its_prepare_and_launch(tmp_path):
         assert _children(spans, i) == ["dnnpde.rollout.prepare", "dnnpde.rollout.launch"]
     assert len(_pairs(spans, events)) == len(spans)
     assert tracing.counters().get("ops.rollout_paths.calls", 0) == 0
+
+
+def _nais_trainer(fused, D=3, N=4, M=8):
+    from dnnpde_tpu_torch.pde import BasketCallOption
+    from dnnpde_tpu_torch.solver import SolverConfig
+
+    return Trainer(BasketCallOption(D=D), M=M, N=N, layers=[D + 1, 16, 16, 16, 1],
+                   mode="Naisnet", activation="Sine", seed=3, device="cpu",
+                   solver_config=SolverConfig(fused_net_u=fused, remat=False))
+
+
+@pytest.mark.parametrize("fused", ["torch", "cuda"])
+def test_the_nais_projection_is_one_span_a_loss(tmp_path, fused):
+    """The fused NAIS-Net's projections run once a loss, under
+    ``dnnpde.nets.nais_project``: one span an iteration, inside the chunk's
+    eager iterations; none without a profiler. On the CPU the kernels' NAIS
+    counters stay at 0 (their plain versions run)."""
+    tr = _nais_trainer(fused)
+    before = tracing.counters()
+    tr.train(2, 1e-3, log_every=2, verbose=False)
+    assert tracing.spans() == []
+    spans, events, _ = _traced(tmp_path, lambda: tr.train(3, 1e-3, log_every=3, verbose=False))
+    projections = [s for s in spans if s.name == "dnnpde.nets.nais_project"]
+    assert len(projections) == 3
+    assert sum(e["name"] == "dnnpde.nets.nais_project" for e in events) == 3
+    (eager,) = [i for i, s in enumerate(spans) if s.name == "dnnpde.train.eager"]
+    assert all(s.parent == eager for s in projections)
+    after = tracing.counters()
+    for name in ("ops.mlp_u_z_fwd.nais_calls", "ops.mlp_u_z_bwd.nais_calls"):
+        assert after.get(name, 0) == before.get(name, 0) == 0, name
+
+
+@pytest.mark.cuda
+def test_the_nais_counters_count_a_captured_iteration_and_no_replay():
+    """On the card a chunk of k iterations calls each NAIS wrapper N + 1
+    times in its eager warm-up and N + 1 in its capture, and not in its
+    k − 1 replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from dnnpde_tpu_torch.pde import BasketCallOption
+    from dnnpde_tpu_torch.solver import SolverConfig
+
+    N, k = 4, 5
+    tr = Trainer(BasketCallOption(D=3), M=8, N=N, layers=[4, 16, 16, 16, 1], mode="Naisnet",
+                 activation="Sine", seed=3, device="cuda",
+                 solver_config=SolverConfig(fused_net_u="cuda", remat=False))
+    names = [f"ops.{kern}.{c}" for kern in ("mlp_u_z_fwd", "mlp_u_z_bwd")
+             for c in ("calls", "nais_calls")] + ["train.graph_captures", "train.graph_replays"]
+    before = tracing.counters()
+    tr.train(k, 1e-3, log_every=k, verbose=False)
+    torch.cuda.synchronize()
+    after = tracing.counters()
+    assert [after.get(n, 0) - before.get(n, 0) for n in names] == [2 * (N + 1)] * 4 + [1, k - 1]
