@@ -355,6 +355,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of fn() in ms: CUDA events around replays of one captured
+    graph of ``calls`` calls. Back-to-back eager calls (``time_ms``) time a
+    wrapper's host work instead wherever it outlasts the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def host_ms(fn, iters: int) -> float:
     """Median wall time in ms of fn() followed by a device synchronize: what
     a caller waits for one request."""
@@ -604,29 +629,40 @@ def time_nais(Ws, bs, device, B: int = TRAIN_M) -> tuple[dict, dict]:
     """Kernel, plain and bound ms of K1's and K2's NAIS forms at the
     training path's B = M: the forward pass and Z-sweep (K1); the forward
     recomputed, the sweep through the blocks' -A_i, the Z-path adjoint and
-    the u-path backward (K2)."""
+    the u-path backward (K2). K2's row chain runs on clusters of 16 CTAs at
+    B = M; beside it, K2 at B = 2048, where it runs on one block a tile.
+    K2's ms are device time from graph replays (``graph_ms``): called back
+    to back, its wrapper's host work outlasts the clustered chain."""
     from dnnpde_tpu_torch.ops.mlp_kernel import (
-        mlp_u_z_bwd, mlp_u_z_bwd_reference, mlp_u_z_fwd, mlp_u_z_fwd_reference,
+        bwd_takes_cluster, mlp_u_z_bwd, mlp_u_z_bwd_reference, mlp_u_z_fwd,
+        mlp_u_z_fwd_reference,
     )
 
-    x, u_bar, z_bar = _k2_inputs(B, device, seed=400 + B)
     hidden, head = _nais_macs(LAYERS)
     blocks, H = len(LAYERS) - 3, LAYERS[1]
     k1_bound = bound_ms(2 * B * (2 * hidden + head),
                         4 * B * (2 * LAYERS[0] + 1) + _nais_weight_bytes(LAYERS))
     k2_macs = 3 * hidden + blocks * H * H + 2 * head + 2 * hidden
-    k2_bound = bound_ms(2 * B * k2_macs,
-                        4 * B * (3 * LAYERS[0] + 1) + 2 * _nais_weight_bytes(LAYERS))
-    rows = []
-    for fn, plain, (bms, by) in (
-            (lambda: mlp_u_z_fwd(Ws, bs, x, nais=True),
-             lambda: mlp_u_z_fwd_reference(Ws, bs, x, nais=True), k1_bound),
-            (lambda: mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True),
-             lambda: mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=True), k2_bound)):
-        rows.append({"ms": time_ms(fn, iters=50), "plain_ms": time_ms(plain, iters=20),
-                     "bound_ms": bms, "bound_by": by, "shape": f"B={B}"})
-    print("K1 NAIS, K2 NAIS: " + json.dumps(rows))
-    return rows[0], rows[1]
+
+    def k2_row(rows_b: int) -> dict:
+        x, u_bar, z_bar = _k2_inputs(rows_b, device, seed=400 + rows_b)
+        bms, by = bound_ms(2 * rows_b * k2_macs,
+                           4 * rows_b * (3 * LAYERS[0] + 1) + 2 * _nais_weight_bytes(LAYERS))
+        chain = "cluster" if bwd_takes_cluster(LAYERS, rows_b, nais=True) else "one block"
+        return {"ms": graph_ms(lambda: mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True)),
+                "plain_ms": time_ms(lambda: mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar,
+                                                                  nais=True), iters=20),
+                "bound_ms": bms, "bound_by": by, "shape": f"B={rows_b}", "row_chain": chain}
+
+    x, _, _ = _k2_inputs(B, device, seed=400 + B)
+    bms, by = k1_bound
+    k1 = {"ms": time_ms(lambda: mlp_u_z_fwd(Ws, bs, x, nais=True), iters=50),
+          "plain_ms": time_ms(lambda: mlp_u_z_fwd_reference(Ws, bs, x, nais=True), iters=20),
+          "bound_ms": bms, "bound_by": by, "shape": f"B={B}"}
+    k2 = k2_row(B)
+    k2[f"B={K2_BATCHES[-1]}"] = k2_row(K2_BATCHES[-1])
+    print("K1 NAIS, K2 NAIS: " + json.dumps([k1, k2]))
+    return k1, k2
 
 
 def check_nais_kernels(device) -> dict:

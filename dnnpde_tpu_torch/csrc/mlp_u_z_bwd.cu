@@ -71,7 +71,7 @@
 //    ~40 us at B = 1 to 100 and ~81 us at B = 256 to 448 (two waves of
 //    clusters), against ~116 us for design 1; the wrapper takes it where its
 //    shared memory fits and B <= 448 (ops/mlp_kernel.py::bwd_takes_cluster),
-//    and design 1 elsewhere.
+//    and design 1 elsewhere. The NAIS-Net's form is below.
 // 2. The weight gradients, mlp_u_z_bwd_wgrad: W_bar_k = A_k^T B_k, one product
 //    over the 2 x 16 x tiles scratch rows (the Z-path's rows, then the
 //    u-path's). One block of 4 warps per 32 x 64 tile of one W_bar_k, so the
@@ -103,8 +103,28 @@
 // the block kind): the forward's a_k in the working rows, r_k and then
 // a_bar_k in the R slots that design 1 frees as it goes, the c stream in
 // the working rows. The weight-gradient kernel takes the blocks' (round16(n0)
-// + H)-row operands as it takes any width. The clustered row chain takes
-// the MLP only.
+// + H)-row operands as it takes any width.
+// Design 1' runs it too (cluster::mlp_u_z_bwd_rows_nais, the clustered body
+// instantiated for the block kind), on clusters of 16 CTAs, a non-portable
+// size: with 8, a CTA's slices of the blocks' [U_k; 0; -A_k] (368 rows at
+// full width) and its staging take 314 KB, beyond 227 KB; with 16 its
+// column slice of a block is its 16 columns of all 368 rows (U_k's padded
+// to 128), its row slices -A_k's 16 rows of its a columns and U_k's 8 rows
+// of its x columns, 122,880 bytes of slices in all, and the CTA 195,488
+// bytes. bf(x) and bf(z_bar) stay whole in every CTA: a block's forward
+// and Z-path passes read their first round16(n0) columns of A from them and
+// the rest from the exchanged blocks, k-steps ascending as design 1 has
+// them, so each output is design 1's bit for bit. The NAIS streams split by
+// columns as p_k and r_k do: the forward's a_k and then the head's bf(a_{L-1})
+// in the working rows, r_k then pz_k then a_bar_k in the R slots, the c
+// stream in the working rows; the u-path's U_k rows (the block's share of
+// x_bar, summed over the blocks per column in f32) run beside its -A_k rows
+// on warps those leave idle, in the same pass. An H100 holds 7 such
+// clusters at once (one CTA an SM), so B <= 112 runs in one wave: on an
+// H100 the launch with the weight gradient takes ~47 us at B = 1 to 112,
+// ~88 us at B = 113 to 224 and ~131 us at B = 225 to 336, against ~156-161
+// us for design 1; the wrapper takes it where its shared memory fits and B
+// <= 336 (ops/mlp_kernel.py::bwd_takes_cluster), and design 1 elsewhere.
 #include "common.cuh"
 
 namespace {
@@ -506,7 +526,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 namespace cluster {
 
-constexpr int kCtas = 8;  // CTAs of a cluster, the portable maximum
+constexpr int kCtas = 8;  // CTAs of the MLP's cluster, the portable maximum
+// CTAs of the NAIS-Net's: a non-portable size, so that a CTA's slices of the
+// blocks' (round16(n0) + H)-row weights fit its shared memory; an H100 holds
+// 7 such clusters at once (one CTA an SM), 7 tiles: B <= 112 in one wave
+constexpr int kNaisCtas = 16;
 // 16 warps: warp w runs the CTA's n8 tiles w, w + kWarps, ... on the tensor
 // cores; all of them run the epilogues, one element a thread, and the
 // prologue, whose scalar work 4 warps (one a scheduler) could not hide
@@ -514,14 +538,14 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
 // A column space of width n is cut into round16(n) / 8 tiles of 8 columns;
-// CTA r owns tiles [r tpc, (r + 1) tpc), of which those below round16(n)
-// exist, with tpc = ceil(tiles / kCtas) rounded up to a power of two, so
-// that a column's CTA and its place in that CTA's slice are shifts. Both
-// passes that meet in a column space (the forward layer k - 1 and the sweep
-// or u-path layer k) cut it alike, so each epilogue finds the state it reads
-// in its own CTA.
-__host__ __device__ inline int tiles_per_cta(int n) {
-  const int t = (dnnpde_round16(n) / 8 + kCtas - 1) / kCtas;
+// CTA r of ctas owns tiles [r tpc, (r + 1) tpc), of which those below
+// round16(n) exist, with tpc = ceil(tiles / ctas) rounded up to a power of
+// two, so that a column's CTA and its place in that CTA's slice are shifts.
+// Both passes that meet in a column space (the forward layer k - 1 and the
+// sweep or u-path layer k) cut it alike, so each epilogue finds the state it
+// reads in its own CTA.
+__host__ __device__ inline int tiles_per_cta(int n, int ctas) {
+  const int t = (dnnpde_round16(n) / 8 + ctas - 1) / ctas;
   int p = 1;
   while (p < t) p *= 2;
   return p;
@@ -536,21 +560,33 @@ __host__ __device__ inline int log2_pow2(int v) {
 // Shared memory of a CTA, host-computed. In order: the weight slices in
 // bf16 as ldmatrix reads them, rows padded by 8 (16 bytes, so its eight row
 // reads hit eight bank groups): W_k's column slice row-major, its row slice
-// in kCtas blocks, block p the columns that CTA p's column slice holds;
+// in ctas blocks, block p the columns that CTA p's column slice holds;
 // three mbarriers (the exchange's two, the prologue's) and the inputs in
 // f32 (the tile's x and z_bar, u_bar, the CTA's columns of each hidden bias
 // and of W_{L-1}); then one region used twice, by the prologue's two f32
 // staging buffers of column slices and after it by three bf16 operand
 // buffers and the f32 state (P, R, two working row blocks, the head's
-// bf(sin p), a pass's accumulators). An operand buffer holds kCtas blocks,
+// bf(sin p), a pass's accumulators). An operand buffer holds ctas blocks,
 // block r the 16 rows of CTA r's columns, row stride lwmax + 8.
+//
+// The NAIS-Net (16 CTAs): a block's column slice holds U_k's rows, padded to
+// xrows = ctas 8 tpc[0], before -A_k's; its row slice is -A_k's, and U_k's
+// rows of the CTA's x columns (a block of 8 tpc[0] rows from each peer) lie
+// in a third slice. bf(x) and bf(z_bar) join the inputs, whole (16 rows of
+// round16(n0) + 8): a block's A operand is [bf(x) or bf(z_bar), then the
+// a-part in blocks]. The state adds the x rows' accumulators and x_bar's sum
+// over the blocks, 16 x 8 tpc[0] f32 each.
 struct Layout {
   int tpc[DNNPDE_MAX_LAYERS + 1];  // tiles a CTA owns of width[k]
-  int fwd[DNNPDE_MAX_LAYERS];      // bf16 offset of W_k's column slice: kCtas 8 tpc[k] rows
-  int swp[DNNPDE_MAX_LAYERS];      // bf16 offset of W_k's row slice: kCtas blocks of 8 tpc[k] rows
+  int fwd[DNNPDE_MAX_LAYERS];      // bf16 offset of W_k's column slice: ctas 8 tpc[k] rows (a
+                                   // NAIS block: xrows more first)
+  int swp[DNNPDE_MAX_LAYERS];      // bf16 offset of W_k's row slice: ctas blocks of 8 tpc[k] rows
+  int swx[DNNPDE_MAX_LAYERS];      // NAIS: bf16 offset of U_k's rows: ctas blocks of 8 tpc[0] rows
   int slot[DNNPDE_MAX_LAYERS];     // float offset of P and R slot k: 16 x 8 tpc[k + 1]
   int bias[DNNPDE_MAX_LAYERS];     // float offset of b_k's columns in the inputs
   int wtop;                        // float offset of W_{L-1}'s columns in the inputs
+  int xop;                         // NAIS: float offset of bf(x), then bf(z_bar), in the inputs
+  int xrows;                       // NAIS: U_k's rows in a block's column slice
   int inputs;                      // floats of the mbarriers and inputs
   int stage;                       // floats of one staging buffer
   int hidden;                      // floats of all P slots
@@ -560,35 +596,45 @@ struct Layout {
   long long smem;
 };
 
-Layout make(const int* width, int L) {
+Layout make(const int* width, int L, bool nais) {
   Layout c;
-  for (int k = 0; k <= L; ++k) c.tpc[k] = tiles_per_cta(width[k]);
-  int frag = 0, inputs = 8 + 2 * kTile * dnnpde_round16(width[0]) + kTile, stage = 0;
+  const int ctas = nais ? kNaisCtas : kCtas, n0p = dnnpde_round16(width[0]);
+  for (int k = 0; k <= L; ++k) c.tpc[k] = tiles_per_cta(width[k], ctas);
+  c.xrows = ctas * 8 * c.tpc[0];
+  int frag = 0, inputs = 8 + 2 * kTile * n0p + kTile, stage = 0;
   c.hidden = 0;
   c.lwmax = 0;
   for (int k = 0; k < L - 1; ++k) {
     const int lwo = 8 * c.tpc[k + 1], lwi = 8 * c.tpc[k];
-    // both kCtas lwi rows of lwo + 8 (kCtas lwi >= round16(width[k]))
+    const bool block = nais && k > 0;
+    // both ctas lwi rows of lwo + 8 (ctas lwi >= round16(width[k])); a
+    // block's column slice and U_k's rows xrows more each
     c.fwd[k] = frag;
-    frag += kCtas * lwi * (lwo + 8);
+    frag += ((block ? c.xrows : 0) + ctas * lwi) * (lwo + 8);
     c.swp[k] = frag;
-    frag += kCtas * lwi * (lwo + 8);
+    frag += ctas * lwi * (lwo + 8);
+    c.swx[k] = frag;
+    if (block) frag += c.xrows * (lwo + 8);
     c.slot[k] = c.hidden;
     c.hidden += kTile * lwo;
     c.bias[k] = inputs;
     inputs += lwo;
-    // staged in f32: the column slice as width[k] rows of lwo
-    stage = stage > width[k] * lwo ? stage : width[k] * lwo;
+    // staged in f32: the column slice as W_k's rows of lwo
+    const int rows = block ? n0p + width[k] : width[k];
+    stage = stage > rows * lwo ? stage : rows * lwo;
   }
   c.wtop = inputs;
   inputs += 8 * c.tpc[L - 1];
+  c.xop = inputs;
+  if (nais) inputs += kTile * (n0p + 8);  // 2 x 16 rows of n0p + 8 bf16
   for (int k = 0; k < L; ++k) c.lwmax = c.lwmax > 8 * c.tpc[k] ? c.lwmax : 8 * c.tpc[k];
   c.blk = kTile * (c.lwmax + 8);
   c.frag = frag;
   c.inputs = inputs;
   c.stage = stage;
   const long long steady =
-      2LL * 3 * kCtas * c.blk + 4LL * (2LL * c.hidden + 4LL * kTile * c.lwmax);
+      2LL * 3 * ctas * c.blk +
+      4LL * (2LL * c.hidden + 4LL * kTile * c.lwmax + (nais ? 2LL * kTile * 8 * c.tpc[0] : 0));
   const long long staging = 4LL * 2 * stage;
   c.smem = 2LL * frag + 4LL * inputs + (steady > staging ? steady : staging);
   return c;
@@ -705,12 +751,16 @@ __device__ __forceinline__ void convert(bf16* dst, const float* stg, int rows, i
 // post(b, o, lc, acc) runs for every column o of the CTA below round16(n)
 // (lc: o's column in the CTA's slice), one a thread, and returns the value
 // whose bf16 goes to row b, column o of `out` (the CTA's block) and of 16
-// rows of a scratch operand (row stride round16(n)), where given.
+// rows of a scratch operand (row stride ldd), where given.
+// XPART (a NAIS-Net layer in the forward direction): A's first xk columns
+// are X's (16 rows of stride xk + 8), the rest A's blocks from column 0;
+// W's rows for A's blocks start wsh rows further down.
 // The accumulators of the CTA's tile lt of a pass (see pass), parked in
 // accs (16 rows, stride ld).
-template <bool SWEEP>
+template <bool SWEEP, bool XPART = false>
 __device__ __forceinline__ void mma_tile(const bf16* A, int lsh, int S, const bf16* W, int ldw,
-                                         int wblk, int lt, int blk, int lda, float* accs, int ld) {
+                                         int wblk, int lt, int blk, int lda, float* accs, int ld,
+                                         const bf16* X = nullptr, int xk = 0, int wsh = 0) {
   const int lane = threadIdx.x & 31;
   const int arow = lane & 15, acol = (lane >> 4) * 8, amask = (1 << lsh) - 1;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -720,7 +770,8 @@ __device__ __forceinline__ void mma_tile(const bf16* A, int lsh, int S, const bf
                          : W + ((lane & 7) + 8 * (lane >> 3)) * ldw + 8 * lt;
   auto ldb = [&](uint32_t(&b)[4], int s, bool two) {  // B of k-steps s (and s + 1)
     const int kc = 16 * s + 8 * (lane >> 3);
-    const bf16* wp = SWEEP ? wl + (kc >> lsh) * wblk + (kc & amask) : wl + 16 * s * ldw;
+    const bf16* wp = SWEEP ? wl + (kc >> lsh) * wblk + (kc & amask)
+                           : wl + (16 * s + (XPART && kc >= xk ? wsh : 0)) * ldw;
     if (SWEEP) {
       if (two) ldsm_x4(b, wp);
       else ldsm_x2(b, wp);
@@ -730,8 +781,9 @@ __device__ __forceinline__ void mma_tile(const bf16* A, int lsh, int S, const bf
     }
   };
   auto lda_ = [&](uint32_t(&a)[4], int s) {  // A of k-step s: this lane's 8 columns
-    const int c = 16 * s + acol;
-    ldsm_x4(a, A + (c >> lsh) * blk + arow * lda + (c & amask));
+    const int c = 16 * s + acol, ca = XPART ? c - xk : c;
+    ldsm_x4(a, XPART && c < xk ? X + arow * (xk + 8) + c
+                               : A + (ca >> lsh) * blk + arow * lda + (ca & amask));
   };
   // four k-steps at a time, their loads ahead of their products, which add
   // into acc in k order
@@ -757,21 +809,19 @@ __device__ __forceinline__ void mma_tile(const bf16* A, int lsh, int S, const bf
   *reinterpret_cast<float2*>(accs + (g + 8) * ld + lt * 8 + q2) = make_float2(acc[2], acc[3]);
 }
 
-template <bool SWEEP, typename Post>
-__device__ __forceinline__ void pass(const bf16* A, int lsh, int K, const bf16* W, int n, int tpc,
-                                     int rank, const Layout& cl, float* accs, bf16* out, bf16* dst,
-                                     Post post) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int S = dnnpde_round16(K) >> 4, t0 = rank * tpc, ld = 8 * tpc, lda = cl.lwmax + 8;
-  const int nt = max(0, min(tpc, (dnnpde_round16(n) >> 3) - t0));  // the CTA's tiles
-  // W's rows: the column slice's of 8 tpc columns, the row slice's blocks' of 2^lsh
-  const int ldw = (SWEEP ? 1 << lsh : ld) + 8;
-  for (int lt = warp; lt < nt; lt += kWarps)
-    mma_tile<SWEEP>(A, lsh, S, W, ldw, ld * ldw, lt, cl.blk, lda, accs, ld);
-  __syncthreads();
+// The CTA's tiles of a width-n column space cut tpc tiles a CTA.
+__device__ __forceinline__ int cta_tiles(int n, int tpc, int rank) {
+  return max(0, min(tpc, (dnnpde_round16(n) >> 3) - rank * tpc));
+}
+
+// A pass's epilogue (see mma_tile), once its tiles' accumulators are in accs.
+template <typename Post>
+__device__ __forceinline__ void epilogue(int n, int tpc, int rank, int lda, const float* accs,
+                                         bf16* out, bf16* dst, int ldd, Post post) {
+  const int lane = threadIdx.x & 31, t0 = rank * tpc, ld = 8 * tpc;
   // 16 x 8 nt elements, a multiple of 128: a warp is wholly in or out, and
   // lane pairs hold column pairs
-  const int w8 = 8 * nt, ldd = dnnpde_round16(n);
+  const int w8 = 8 * cta_tiles(n, tpc, rank);
   for (int i = threadIdx.x; i < kTile * w8; i += kThreads) {
     const int b = i / w8, lc = i - b * w8, o = t0 * 8 + lc;
     const float v = post(b, o, lc, accs[b * ld + lc]);
@@ -784,23 +834,44 @@ __device__ __forceinline__ void pass(const bf16* A, int lsh, int K, const bf16* 
   }
 }
 
+// dst's row stride ldd: round16(n) unless given; X, xk, wsh: see mma_tile.
+template <bool SWEEP, bool XPART = false, typename Post>
+__device__ __forceinline__ void pass(const bf16* A, int lsh, int K, const bf16* W, int n, int tpc,
+                                     int rank, const Layout& cl, float* accs, bf16* out, bf16* dst,
+                                     Post post, int ldd = 0, const bf16* X = nullptr, int xk = 0,
+                                     int wsh = 0) {
+  const int warp = threadIdx.x >> 5;
+  const int S = dnnpde_round16(K) >> 4, ld = 8 * tpc, lda = cl.lwmax + 8;
+  const int nt = cta_tiles(n, tpc, rank);
+  // W's rows: the column slice's of 8 tpc columns, the row slice's blocks' of 2^lsh
+  const int ldw = (SWEEP ? 1 << lsh : ld) + 8;
+  for (int lt = warp; lt < nt; lt += kWarps)
+    mma_tile<SWEEP, XPART>(A, lsh, S, W, ldw, ld * ldw, lt, cl.blk, lda, accs, ld, X, xk, wsh);
+  __syncthreads();
+  epilogue(n, tpc, rank, lda, accs, out, dst, ldd ? ldd : dnnpde_round16(n), post);
+}
+
 // The row chain of design 1', in the order and with the epilogues of
-// ::mlp_u_z_bwd_rows; grid: tiles x kCtas CTAs in clusters of kCtas.
+// ::mlp_u_z_bwd_rows (NAIS: ::mlp_u_z_bwd_rows_nais); grid: tiles x ctas
+// CTAs in clusters of ctas (kCtas, NAIS kNaisCtas).
 //
 // The exchange: after a pass has written the CTA's block of the next
 // operand, one bulk copy a peer sends the block to the same place in the
 // peer's buffer, counted on the peer's mbarrier (exchange e uses mbarrier
-// e % 2, armed for 7 blocks); before the next pass a CTA waits on its own.
-// No barrier is needed besides: a peer sends exchange e + 1 into the buffer
-// of exchange e - 1 only after it had all of exchange e, so after every CTA
-// had finished reading that buffer; and the mbarriers alternate, so a copy
-// for e + 1 cannot complete the phase of e. Operands that no pass reads
-// (bf(a_{L-1}), q_0) are not exchanged.
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
-                 const float* __restrict__ zbar, float* __restrict__ xbar,
-                 bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
-                 const BwdLayout lay, const Layout cl, int B) {
+// e % 2, armed for ctas - 1 blocks); before the next pass a CTA waits on its
+// own. No barrier is needed besides: a peer sends exchange e + 1 into the
+// buffer of exchange e - 1 only after it had all of exchange e, so after
+// every CTA had finished reading that buffer; and the mbarriers alternate,
+// so a copy for e + 1 cannot complete the phase of e. Operands that no pass
+// reads (bf(a_{L-1}), q_0) are not exchanged, nor, in the NAIS-Net, bf(x)
+// and bf(z_bar), which every CTA holds whole.
+template <bool NAIS>
+__device__ __forceinline__ void chain(const float* __restrict__ x, const float* __restrict__ ubar,
+                                      const float* __restrict__ zbar, float* __restrict__ xbar,
+                                      bf16* __restrict__ ops, float* __restrict__ partials,
+                                      const MlpWeights& w, const BwdLayout& lay, const Layout& cl,
+                                      int B) {
+  constexpr int kC = NAIS ? kNaisCtas : kCtas;
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = w.L;
   const int n0 = w.width[0], n0p = dnnpde_round16(n0);
@@ -813,17 +884,24 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   float* zin = xin + kTile * n0p;
   float* ub = zin + kTile * n0p;
   const float* wsm = inp + cl.wtop;          // the CTA's columns of W_{L-1}
+  const int ldx = n0p + 8;
+  bf16* xop = reinterpret_cast<bf16*>(inp + cl.xop);  // NAIS: bf(x), whole
+  bf16* zop = xop + kTile * ldx;                      // NAIS: bf(z_bar), whole
   float* region = inp + cl.inputs;
   float* stg[2] = {region, region + cl.stage};
   bf16* act0 = reinterpret_cast<bf16*>(region);  // the operands, in blocks
-  bf16* act1 = act0 + kCtas * cl.blk;
-  bf16* act2 = act1 + kCtas * cl.blk;
-  float* P = reinterpret_cast<float*>(act2 + kCtas * cl.blk);  // the CTA's columns of p_k
-  float* R = P + cl.hidden;                  // r_{k+1}, then pz_k
-  float* fa = R + cl.hidden;                 // working rows: the top layer's c, then p_bar
-  float* fb = fa + kTile * cl.lwmax;
-  float* sinp = fb + kTile * cl.lwmax;       // the head's bf(sin p)
+  bf16* act1 = act0 + kC * cl.blk;
+  bf16* act2 = act1 + kC * cl.blk;
+  float* P = reinterpret_cast<float*>(act2 + kC * cl.blk);  // the CTA's columns of p_k
+  float* R = P + cl.hidden;                  // r_{k+1}, then pz_k; NAIS: then a_bar_{k+1}
+  float* fa = R + cl.hidden;                 // working rows: the top layer's c, then p_bar;
+                                             // NAIS: the c stream, then p_bar
+  float* fb = fa + kTile * cl.lwmax;         // NAIS: the forward's a stream first
+  float* sinp = fb + kTile * cl.lwmax;       // the head's bf(sin p); NAIS: bf(a_{L-1})
   float* accs = sinp + kTile * cl.lwmax;     // a pass's accumulators
+  const int lwx = 8 * cl.tpc[0];             // the CTA's x columns
+  float* accx = accs + kTile * cl.lwmax;     // NAIS: the accumulators of the x rows' tiles
+  float* xacc = accx + kTile * lwx;          // NAIS: x_bar's sum over the blocks
   const int lda = cl.lwmax + 8;
   const int row0 = tile * kTile;
   float* part = partials + (size_t)tile * lay.ntail;
@@ -835,6 +913,7 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   auto lsh = [&](int k) { return log2_pow2(8 * cl.tpc[k]); };  // of width[k]'s blocks
   const uint32_t xbytes = 2u * cl.blk;
   const int exchanges = 4 * L - 7;
+  const int xsh = cl.xrows - n0p;  // NAIS: -A_k's rows in a block's column slice, less n0p
 
   // ---- prologue: the inputs, and every column slice through two staging
   // buffers, each slice's copy in flight while the one before is converted;
@@ -846,10 +925,13 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
     mbar_init(xbars + 1);
     mbar_init(tbar);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect(xbars, (kCtas - 1) * xbytes);  // exchanges 0 and 1
-    mbar_expect(xbars + 1, (kCtas - 1) * xbytes);
+    mbar_expect(xbars, (kC - 1) * xbytes);  // exchanges 0 and 1
+    mbar_expect(xbars + 1, (kC - 1) * xbytes);
     uint32_t rows = 0;
-    for (int k = 0; k < L - 1; ++k) rows += 2u * kCtas * 8 * cl.tpc[k] * (8 * cl.tpc[k + 1] + 8);
+    for (int k = 0; k < L - 1; ++k) {
+      rows += 2u * kC * 8 * cl.tpc[k] * (8 * cl.tpc[k + 1] + 8);
+      if (NAIS && k > 0) rows += 2u * cl.xrows * (8 * cl.tpc[k + 1] + 8);  // U_k's
+    }
     mbar_expect(tbar, rows);
   }
   __syncthreads();
@@ -873,57 +955,91 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   // W_k's column slice: its rows of this CTA's lw columns, c0 on
   auto stage = [&](int k, float* buf) {
     const int n = w.width[k + 1], lw = 8 * cl.tpc[k + 1], c0 = rank * lw;
+    const int rows = NAIS && k > 0 ? n0p + w.width[k] : w.width[k];
     const float* W = w.W[k];
     if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0)
-      copy_rows<true>(buf, W + c0, n, w.width[k], lw, n - c0, W);
+      copy_rows<true>(buf, W + c0, n, rows, lw, n - c0, W);
     else
-      copy_rows<false>(buf, W + c0, n, w.width[k], lw, n - c0, W);
+      copy_rows<false>(buf, W + c0, n, rows, lw, n - c0, W);
     cp_async_commit();
   };
   stage(0, stg[0]);  // the inputs' copies join this group
   if (slices > 1) stage(1, stg[1]);
   else cp_async_commit();
   for (int k = 0; k < slices; ++k) {
+    const int lwo = 8 * cl.tpc[k + 1];
     cp_async_wait<1>();
     __syncthreads();
-    convert(frag + cl.fwd[k], stg[k & 1], kCtas * 8 * cl.tpc[k], w.width[k], 8 * cl.tpc[k + 1]);
+    if (NAIS && k > 0) {  // U_k's rows (and the zero rows after them), then -A_k's
+      convert(frag + cl.fwd[k], stg[k & 1], cl.xrows, n0p, lwo);
+      convert(frag + cl.fwd[k] + cl.xrows * (lwo + 8), stg[k & 1] + n0p * lwo,
+              kC * 8 * cl.tpc[k], w.width[k], lwo);
+    } else {
+      convert(frag + cl.fwd[k], stg[k & 1], kC * 8 * cl.tpc[k], w.width[k], lwo);
+    }
     __syncthreads();
     if (k + 2 < slices) stage(k + 2, stg[k & 1]);
     else cp_async_commit();
   }
-  // the region is the operands' now: bf(x) in act0 and bf(z_bar) in act2,
-  // whole in every CTA; rank 0 stores them, the A operands of W_bar_0
-  bf16* a0 = urows(lay.aop[0], n0);
-  bf16* c0 = zrows(lay.aop[0], n0);
-  const int lsh0 = lsh(0), mask0 = (1 << lsh0) - 1;
-  for (int b = threadIdx.x / n0p, c = threadIdx.x % n0p, db = kThreads / n0p, dc = kThreads % n0p;
-       b < kTile;) {
-    const int i = b * n0p + c, at = (c >> lsh0) * cl.blk + b * lda + (c & mask0);
-    const bf16 xv = __float2bfloat16_rn(xin[i]), zv = __float2bfloat16_rn(zin[i]);
-    act0[at] = xv;
-    act2[at] = zv;
-    if (rank == 0) {
-      a0[i] = xv;
-      c0[i] = zv;
+  if constexpr (NAIS) {
+    // bf(x) and bf(z_bar), whole in every CTA; CTA k < L - 1 stores them as
+    // the first n0p columns of layer k's scratch operands
+    const bool mine = rank < L - 1;
+    const int kk = mine ? rank : 0, K = lay.kin[kk], ldk = dnnpde_round16(K);
+    bf16* xs = urows(lay.aop[kk], K);
+    bf16* zs = zrows(lay.aop[kk], K);
+    for (int i = threadIdx.x; i < kTile * n0p; i += kThreads) {
+      const int b = i / n0p, c = i - b * n0p;
+      const bf16 xv = __float2bfloat16_rn(xin[i]), zv = __float2bfloat16_rn(zin[i]);
+      xop[b * ldx + c] = xv;
+      zop[b * ldx + c] = zv;
+      if (mine) {
+        xs[(size_t)b * ldk + c] = xv;
+        zs[(size_t)b * ldk + c] = zv;
+      }
     }
-    b += db;
-    c += dc;
-    if (c >= n0p) {
-      c -= n0p;
-      ++b;
+  } else {
+    // the region is the operands' now: bf(x) in act0 and bf(z_bar) in act2,
+    // whole in every CTA; rank 0 stores them, the A operands of W_bar_0
+    bf16* a0 = urows(lay.aop[0], n0);
+    bf16* c0 = zrows(lay.aop[0], n0);
+    const int lsh0 = lsh(0), mask0 = (1 << lsh0) - 1;
+    for (int b = threadIdx.x / n0p, c = threadIdx.x % n0p, db = kThreads / n0p, dc = kThreads % n0p;
+         b < kTile;) {
+      const int i = b * n0p + c, at = (c >> lsh0) * cl.blk + b * lda + (c & mask0);
+      const bf16 xv = __float2bfloat16_rn(xin[i]), zv = __float2bfloat16_rn(zin[i]);
+      act0[at] = xv;
+      act2[at] = zv;
+      if (rank == 0) {
+        a0[i] = xv;
+        c0[i] = zv;
+      }
+      b += db;
+      c += dc;
+      if (c >= n0p) {
+        c -= n0p;
+        ++b;
+      }
     }
   }
   // the row slices: CTA r's row slice of W_k is rows [lwK r, lwK (r + 1))
-  // of W_k, and the column slice of CTA p holds them for its columns, in
-  // the same bf16 and layout: one bulk copy each to block p of r's
+  // of W_k (a NAIS block's: of -A_k), and the column slice of CTA p holds
+  // them for its columns, in the same bf16 and layout: one bulk copy each to
+  // block p of r's; a NAIS block's U_k rows of r's x columns likewise
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the slices, to the copies
   __syncthreads();
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");  // every peer runs
-  if (threadIdx.x < kCtas * (L - 1)) {
-    const int r = threadIdx.x % kCtas, k = threadIdx.x / kCtas;
+  if (threadIdx.x < kC * (L - 1)) {
+    const int r = threadIdx.x % kC, k = threadIdx.x / kC;
     const int lwK = 8 * cl.tpc[k], ldw = 8 * cl.tpc[k + 1] + 8;
-    send(frag + cl.fwd[k] + r * lwK * ldw, 2u * lwK * ldw, r, tbar,
+    const int from = (NAIS && k > 0 ? cl.xrows : 0) + r * lwK;
+    send(frag + cl.fwd[k] + from * ldw, 2u * lwK * ldw, r, tbar,
          frag + cl.swp[k] + rank * lwK * ldw);
+  } else if (NAIS && threadIdx.x < kC * (2 * L - 3)) {
+    const int t = threadIdx.x - kC * (L - 1), r = t % kC, k = 1 + t / kC;
+    const int ldw = 8 * cl.tpc[k + 1] + 8;
+    send(frag + cl.fwd[k] + r * lwx * ldw, 2u * lwx * ldw, r, tbar,
+         frag + cl.swx[k] + rank * lwx * ldw);
   }
   mbar_wait(tbar, 0);
 
@@ -932,14 +1048,15 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   auto exchange = [&](bf16* buf) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the block, to the copies
     __syncthreads();
-    if (threadIdx.x < kCtas && threadIdx.x != rank)
+    if (threadIdx.x < kC && threadIdx.x != rank)
       send(buf + rank * cl.blk, xbytes, threadIdx.x, xbars + (e & 1));
     mbar_wait(xbars + (e & 1), (e >> 1) & 1);
-    if (threadIdx.x == 0 && e + 2 < exchanges) mbar_expect(xbars + (e & 1), (kCtas - 1) * xbytes);
+    if (threadIdx.x == 0 && e + 2 < exchanges) mbar_expect(xbars + (e & 1), (kC - 1) * xbytes);
     ++e;
   };
 
   // ---- recompute the forward pass: p_k; bf(a_{k+1}) is the next A operand
+  // (NAIS: a_{k+1} = sin p_k + a_k in f32 in fb, a block's A [bf(x), bf(a_k)])
   bf16* cur = act0;
   bf16* nxt = act1;
   auto flip = [&] {
@@ -950,17 +1067,25 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
     const bool last = k == L - 2;
     float* Pk = P + cl.slot[k];
     const float* bias = inp + cl.bias[k];
-    pass<false>(cur, lsh(k), K, frag + cl.fwd[k], n, tpc, rank, cl, accs,
-                last ? nullptr : nxt + rank * cl.blk, last ? nullptr : urows(lay.aop[k + 1], n),
-                [&](int b, int o, int lc, float acc) {
-                  float s = 0.f;
-                  if (o < n) {
-                    const float p = acc + bias[lc];
-                    Pk[b * ld + lc] = p;
-                    s = sinf(p);
-                  }
-                  return s;
-                });
+    const int Kn = NAIS ? lay.kin[k + 1] : n;
+    auto post = [&](int b, int o, int lc, float acc) {
+      float s = 0.f;
+      if (o < n) {
+        const float p = acc + bias[lc];
+        Pk[b * ld + lc] = p;
+        s = sinf(p);
+        if (NAIS) {
+          if (k > 0) s += fb[b * ld + lc];
+          fb[b * ld + lc] = s;
+          if (last) sinp[b * ld + lc] = bf16_round(s);
+        }
+      }
+      return s;
+    };
+    bf16* out = last ? nullptr : nxt + rank * cl.blk;
+    bf16* dst = last ? nullptr : urows(lay.aop[k + 1], Kn) + (NAIS ? n0p : 0);
+    pass<false, NAIS>(cur, lsh(k), NAIS ? n0p + (k > 0 ? K : 0) : K, frag + cl.fwd[k], n, tpc,
+                      rank, cl, accs, out, dst, post, dnnpde_round16(Kn), xop, n0p, xsh);
     if (last) {
       __syncthreads();
     } else {
@@ -970,6 +1095,7 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   }
 
   // ---- Z-sweep: q_{L-2} = bf(r_{L-1} cos p_{L-2}), then r_k and q_{k-1}
+  // (NAIS: r_k = r_{k+1} + q_k (-A_k)^T on -A_k's row slice)
   {
     const int tpc = cl.tpc[L - 1], ld = 8 * tpc, sh = log2_pow2(ld), hp = dnnpde_round16(H);
     const float* Pt = P + cl.slot[L - 2];
@@ -990,14 +1116,17 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   for (int k = L - 2; k >= 1; --k) {  // q_0 is no pass's operand
     const int K = w.width[k + 1], n = w.width[k], tpc = cl.tpc[k], ld = 8 * tpc;
     float* Rk = R + cl.slot[k - 1];
+    const float* Rn = R + cl.slot[k];  // NAIS: r_{k+1}
     const float* Pp = P + cl.slot[k - 1];
     pass<true>(cur, lsh(k + 1), K, frag + cl.swp[k], n, tpc, rank, cl, accs,
                k > 1 ? nxt + rank * cl.blk : nullptr, zrows(lay.bop[k - 1], n),
                [&](int b, int o, int lc, float acc) {
                  float v = 0.f;
                  if (o < n) {
-                   Rk[b * ld + lc] = acc;
-                   v = acc * cosf(Pp[b * ld + lc]);
+                   float r = acc;
+                   if (NAIS) r = (k == L - 2 ? wsm[lc] : Rn[b * ld + lc]) + acc;
+                   Rk[b * ld + lc] = r;
+                   v = r * cosf(Pp[b * ld + lc]);
                  }
                  return v;
                });
@@ -1010,26 +1139,35 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
   }
 
   // ---- Z-path adjoint, ascending, from c_0 = bf(z_bar) in act2 (the operand
-  // the sweep's last pass did not write, nor read: it joins the rotation)
-  cur = act2;
+  // the sweep's last pass did not write, nor read: it joins the rotation);
+  // NAIS: from zop, a block's A [bf(z_bar), bf(c_k)], c_{k+1} = c_k + qb cos p_k in fa
+  if (!NAIS) cur = act2;
   for (int k = 0; k < L - 1; ++k) {
     const int K = w.width[k], n = w.width[k + 1], tpc = cl.tpc[k + 1], ld = 8 * tpc;
     const bool top = k == L - 2;
     const float* Pk = P + cl.slot[k];
     float* Rk = R + cl.slot[k];
-    pass<false>(cur, lsh(k), K, frag + cl.fwd[k], n, tpc, rank, cl, accs,
-                top ? nullptr : nxt + rank * cl.blk, top ? nullptr : zrows(lay.aop[k + 1], n),
-                [&](int b, int o, int lc, float qbar) {
-                  float v = 0.f;
-                  if (o < n) {
-                    const float p = Pk[b * ld + lc];
-                    const float r = top ? wsm[lc] : Rk[b * ld + lc];
-                    Rk[b * ld + lc] = -qbar * r * sinf(p);  // pz_k replaces r_{k+1}
-                    v = qbar * cosf(p);
-                    if (top) fa[b * ld + lc] = v;  // summed unrounded into W_bar_{L-1}
-                  }
-                  return v;
-                });
+    const int Kn = NAIS ? lay.kin[k + 1] : n;
+    auto post = [&](int b, int o, int lc, float qbar) {
+      float v = 0.f;
+      if (o < n) {
+        const float p = Pk[b * ld + lc];
+        const float r = top ? wsm[lc] : Rk[b * ld + lc];
+        Rk[b * ld + lc] = -qbar * r * sinf(p);  // pz_k replaces r_{k+1}
+        v = qbar * cosf(p);
+        if (NAIS) {
+          if (k > 0) v += fa[b * ld + lc];
+          fa[b * ld + lc] = v;
+        } else if (top) {
+          fa[b * ld + lc] = v;  // summed unrounded into W_bar_{L-1}
+        }
+      }
+      return v;
+    };
+    bf16* out = top ? nullptr : nxt + rank * cl.blk;
+    bf16* dst = top ? nullptr : zrows(lay.aop[k + 1], Kn) + (NAIS ? n0p : 0);
+    pass<false, NAIS>(cur, lsh(k), NAIS ? n0p + (k > 0 ? K : 0) : K, frag + cl.fwd[k], n, tpc,
+                      rank, cl, accs, out, dst, post, dnnpde_round16(Kn), zop, n0p, xsh);
     if (top) {
       __syncthreads();
     } else {
@@ -1055,7 +1193,7 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
         const float p = Pt[b * ld + lc], u = bf16_round(ub[b]);
         pbar = (u * wj) * cosf(p) + Zt[b * ld + lc];
         fb[b * ld + lc] = pbar;
-        sinp[b * ld + lc] = bf16_round(sinf(p));
+        if (!NAIS) sinp[b * ld + lc] = bf16_round(sinf(p));
       }
       const bf16 v = __float2bfloat16_rn(pbar);
       nxt[rank * cl.blk + b * lda + lc] = v;
@@ -1100,28 +1238,85 @@ mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
       const int tpc = cl.tpc[k], ld = 8 * tpc;
       const float* Pp = P + cl.slot[k - 1];
       const float* Zp = R + cl.slot[k - 1];
-      pass<true>(cur, lsh(k + 1), n, frag + cl.swp[k], K, tpc, rank, cl, accs, nxt + rank * cl.blk,
-                 urows(lay.bop[k - 1], K),
-                 [&](int b, int o, int lc, float abar) {
+      if constexpr (NAIS) {
+        // a block: its -A_k rows (a_bar_k = a_bar_{k+1} + p_bar_k (-A_k)^T
+        // in f32, into slot k, whose pz_k p_bar_k has taken up; p_bar_{k-1}
+        // from it) and, on warps those leave idle, its U_k rows of the same
+        // operand: the block's share of x_bar, summed in xacc
+        float* Ak = R + cl.slot[k];
+        const float* An = R + cl.slot[k + 1 < L - 1 ? k + 1 : k];  // a_bar_{k+1}
+        const int warp = threadIdx.x >> 5, lshn = lsh(k + 1), ldw = (1 << lshn) + 8;
+        const int S = dnnpde_round16(n) >> 4;
+        const int nta = cta_tiles(K, tpc, rank), ntx = cta_tiles(n0, cl.tpc[0], rank);
+        for (int lt = warp; lt < nta + ntx; lt += kWarps) {
+          if (lt < nta)
+            mma_tile<true>(cur, lshn, S, frag + cl.swp[k], ldw, ld * ldw, lt, cl.blk, lda, accs, ld);
+          else
+            mma_tile<true>(cur, lshn, S, frag + cl.swx[k], ldw, lwx * ldw, lt - nta, cl.blk, lda,
+                           accx, lwx);
+        }
+        __syncthreads();
+        epilogue(K, tpc, rank, lda, accs, nxt + rank * cl.blk, urows(lay.bop[k - 1], K),
+                 dnnpde_round16(K), [&](int b, int o, int lc, float abar) {
                    float v = 0.f;
                    if (o < K) {
-                     v = abar * cosf(Pp[b * ld + lc]) + Zp[b * ld + lc];
+                     const float an = (k == L - 2 ? bf16_round(ub[b]) * bf16_round(wsm[lc])
+                                                  : An[b * ld + lc]) + abar;
+                     Ak[b * ld + lc] = an;
+                     v = an * cosf(Pp[b * ld + lc]) + Zp[b * ld + lc];
                      fa[b * ld + lc] = v;
                    }
                    return v;
                  });
+        // the x rows' epilogue, on the threads from the last down
+        for (int i = kThreads - 1 - threadIdx.x; i < kTile * 8 * ntx; i += kThreads) {
+          const int b = i / (8 * ntx), lc = i - b * 8 * ntx;
+          if (rank * lwx + lc < n0) {
+            const float xb = accx[b * lwx + lc];
+            xacc[b * lwx + lc] = k == L - 2 ? xb : xacc[b * lwx + lc] + xb;
+          }
+        }
+      } else {
+        pass<true>(cur, lsh(k + 1), n, frag + cl.swp[k], K, tpc, rank, cl, accs,
+                   nxt + rank * cl.blk, urows(lay.bop[k - 1], K),
+                   [&](int b, int o, int lc, float abar) {
+                     float v = 0.f;
+                     if (o < K) {
+                       v = abar * cosf(Pp[b * ld + lc]) + Zp[b * ld + lc];
+                       fa[b * ld + lc] = v;
+                     }
+                     return v;
+                   });
+      }
       exchange(nxt);
       flip();
       float* t = fa; fa = fb; fb = t;
     } else {
       pass<true>(cur, lsh(1), n, frag + cl.swp[0], n0, cl.tpc[0], rank, cl, accs, nullptr,
-                 nullptr, [&](int b, int o, int, float abar) {
-                   if (o < n0 && row0 + b < B) xbar[(size_t)(row0 + b) * n0 + o] = abar;
+                 nullptr, [&](int b, int o, int lc, float abar) {
+                   if (o < n0 && row0 + b < B)
+                     xbar[(size_t)(row0 + b) * n0 + o] = NAIS ? abar + xacc[b * lwx + lc] : abar;
                    return 0.f;
                  });
     }
   }
   cluster_sync();  // no CTA leaves while a copy from its shared memory may be in flight
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_u_z_bwd_rows(const float* __restrict__ x, const float* __restrict__ ubar,
+                 const float* __restrict__ zbar, float* __restrict__ xbar,
+                 bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
+                 const BwdLayout lay, const Layout cl, int B) {
+  chain<false>(x, ubar, zbar, xbar, ops, partials, w, lay, cl, B);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_u_z_bwd_rows_nais(const float* __restrict__ x, const float* __restrict__ ubar,
+                      const float* __restrict__ zbar, float* __restrict__ xbar,
+                      bf16* __restrict__ ops, float* __restrict__ partials, const MlpWeights w,
+                      const BwdLayout lay, const Layout cl, int B) {
+  chain<true>(x, ubar, zbar, xbar, ops, partials, w, lay, cl, B);
 }
 
 }  // namespace cluster
@@ -1271,7 +1466,13 @@ extern "C" long long mlp_u_z_bwd_nais_scratch_bytes(const int* widths, int L, in
 // DNNPDE_MAX_SMEM (ops/mlp_kernel.py::bwd_cluster_smem_bytes computes the same).
 extern "C" long long mlp_u_z_bwd_cluster_smem_bytes(const int* widths, int L) {
   if (L < 2 || L > DNNPDE_MAX_LAYERS) return -1;
-  return cluster::make(widths, L).smem;
+  return cluster::make(widths, L, false).smem;
+}
+
+// The same for the NAIS-Net's clustered row chain (16 CTAs a cluster).
+extern "C" long long mlp_u_z_bwd_nais_cluster_smem_bytes(const int* widths, int L) {
+  if (L < 3 || L > DNNPDE_MAX_LAYERS) return -1;
+  return cluster::make(widths, L, true).smem;
 }
 
 namespace {
@@ -1284,31 +1485,33 @@ int launch(const float* x, const float* u_bar, const float* z_bar, float* x_bar,
   cudaError_t err = dnnpde_fill_weights(&w, Ws, bs, widths, L);
   if (err != cudaSuccess) return err;
   if (B <= 0 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) return cudaErrorInvalidValue;
-  if (nais && (clustered || L < 3)) return cudaErrorInvalidValue;
+  if (nais && L < 3) return cudaErrorInvalidValue;
   const BwdLayout lay = make_layout(w.width, L, B, nais);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* ops = static_cast<bf16*>(scratch);
   float* partials = reinterpret_cast<float*>(static_cast<char*>(scratch) + lay.part);
   if (clustered) {
-    const cluster::Layout cl = cluster::make(w.width, L);
+    const cluster::Layout cl = cluster::make(w.width, L, nais);
     if (cl.smem > DNNPDE_MAX_SMEM) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(cluster::mlp_u_z_bwd_rows,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cl.smem);
+    const auto rows = nais ? cluster::mlp_u_z_bwd_rows_nais : cluster::mlp_u_z_bwd_rows;
+    const int ctas = nais ? cluster::kNaisCtas : cluster::kCtas;
+    err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cl.smem);
+    if (err == cudaSuccess && nais)  // 16 CTAs: beyond the portable 8
+      err = cudaFuncSetAttribute(rows, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(lay.tiles * cluster::kCtas);
+    cfg.gridDim = dim3(lay.tiles * ctas);
     cfg.blockDim = dim3(cluster::kThreads);
     cfg.dynamicSmemBytes = (size_t)cl.smem;
     cfg.stream = s;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster::kCtas;
+    attr[0].val.clusterDim.x = ctas;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, cluster::mlp_u_z_bwd_rows, x, u_bar, z_bar, x_bar, ops,
-                             partials, w, lay, cl, B);
+    err = cudaLaunchKernelEx(&cfg, rows, x, u_bar, z_bar, x_bar, ops, partials, w, lay, cl, B);
     if (err != cudaSuccess) return err;
   } else {
     size_t smem =
@@ -1366,4 +1569,15 @@ extern "C" int mlp_u_z_bwd_nais(const float* x, const float* u_bar, const float*
                                 const int* widths, int L, int B, void* stream) {
   return launch(x, u_bar, z_bar, x_bar, grads, scratch, Ws, bs, widths, L, B, stream, false,
                 true);
+}
+
+// The same with the row chain on clusters of 16 CTAs
+// (cluster::mlp_u_z_bwd_rows_nais), for shapes whose
+// mlp_u_z_bwd_nais_cluster_smem_bytes is at most DNNPDE_MAX_SMEM; the
+// outputs are mlp_u_z_bwd_nais's bit for bit.
+extern "C" int mlp_u_z_bwd_nais_cluster(const float* x, const float* u_bar, const float* z_bar,
+                                        float* x_bar, float* grads, void* scratch,
+                                        const void* const* Ws, const void* const* bs,
+                                        const int* widths, int L, int B, void* stream) {
+  return launch(x, u_bar, z_bar, x_bar, grads, scratch, Ws, bs, widths, L, B, stream, true, true);
 }

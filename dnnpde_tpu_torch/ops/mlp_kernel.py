@@ -28,7 +28,7 @@ layer 0 maps x = [t, X] to a_1 = sin(x W_0 + b_0); each block k of 1 .. L-2
 is a_{k+1} = sin([x, a_k] W_k + b_k) + a_k with W_k = [U_k; 0; -A_k]
 (:func:`nais_block_weight`), and u = a_{L-1} W_{L-1} + b_{L-1}; its widths
 are [n0, H, ..., H, 1] with at least one block. K2's row chain runs it on
-the one-block design.
+clusters of 16 CTAs or on one block, as it runs the MLP on 8 or one.
 """
 
 from __future__ import annotations
@@ -50,6 +50,12 @@ CLUSTER_CTAS = 8  # cluster::kCtas in csrc/mlp_u_z_bwd.cu
 # clusters (~79 us at full width, against ~116 us for the one-block design,
 # 16 rows to an SM); from 32 tiles on it is three or more (PERF.md, PR 18).
 CLUSTER_MAX_ROWS = 448
+NAIS_CLUSTER_CTAS = 16  # cluster::kNaisCtas: the NAIS-Net's clusters
+# The same for the NAIS-Net: an H100 holds 7 clusters of 16 CTAs at once,
+# so up to 21 tiles take three waves of clusters (~131 us at full width with
+# the weight gradient, against ~160 us for the one-block design); from 22
+# tiles on it is four (~171 us) (PERF.md).
+NAIS_CLUSTER_MAX_ROWS = 336
 
 
 def bf16_dot(a: Tensor, w: Tensor) -> Tensor:
@@ -144,7 +150,7 @@ def _lib(name: str):
         n_ptrs = {"mlp_u_z_fwd": 6, "mlp_u_z_bwd": 9}[name]
         entries = [fn, getattr(lib, f"{name}_nais")]
         if name == "mlp_u_z_bwd":
-            entries.append(lib.mlp_u_z_bwd_cluster)
+            entries += [lib.mlp_u_z_bwd_cluster, lib.mlp_u_z_bwd_nais_cluster]
         for entry in entries:
             entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             entry.restype = ctypes.c_int
@@ -152,9 +158,10 @@ def _lib(name: str):
             for size in (lib.mlp_u_z_bwd_scratch_bytes, lib.mlp_u_z_bwd_nais_scratch_bytes):
                 size.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                 size.restype = ctypes.c_longlong
-            smem = lib.mlp_u_z_bwd_cluster_smem_bytes
-            smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
-            smem.restype = ctypes.c_longlong
+            for smem in (lib.mlp_u_z_bwd_cluster_smem_bytes,
+                         lib.mlp_u_z_bwd_nais_cluster_smem_bytes):
+                smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -252,48 +259,65 @@ def mlp_u_z_bwd_reference(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
     return tuple(W_bars), tuple(b_bars), (a_bar + x_sum if nais else a_bar)
 
 
-def _cluster_cols(n: int) -> int:
-    """Columns of a width-n layer that one CTA of K2's clusters owns: its
-    8-column tiles, ``ceil(round16(n) / 8 / CLUSTER_CTAS)`` rounded up to a
+def _cluster_cols(n: int, ctas: int) -> int:
+    """Columns of a width-n layer that one CTA of K2's clusters of ``ctas``
+    owns: its 8-column tiles, ``ceil(round16(n) / 8 / ctas)`` rounded up to a
     power of two."""
-    tiles = (round16(n) // 8 + CLUSTER_CTAS - 1) // CLUSTER_CTAS
+    tiles = (round16(n) // 8 + ctas - 1) // ctas
     return 8 * (1 << (tiles - 1).bit_length())
 
 
-def bwd_cluster_smem_bytes(widths: Sequence[int]) -> int:
+def bwd_cluster_smem_bytes(widths: Sequence[int], nais: bool = False) -> int:
     """Shared memory of one CTA of K2's clustered row chain for a net of
     these widths ``[n0, ..., 1]`` (the C side's
     ``mlp_u_z_bwd_cluster_smem_bytes``): its slices of the weights in bf16
     (rows padded by 8), three mbarriers and its f32 inputs, then the larger of
     the prologue's two f32 staging buffers (of column slices) and the
     tile's three bf16
-    operands (a block of 16 rows a CTA) with its columns of the f32 state."""
+    operands (a block of 16 rows a CTA) with its columns of the f32 state.
+
+    With ``nais`` (``mlp_u_z_bwd_nais_cluster_smem_bytes``), for the
+    NAIS-Net's clusters of 16 CTAs: a block's column slice holds all its
+    round16(n0) + H rows, U_k's padded to 16 x the CTA's x columns, and a
+    third slice holds U_k's rows of the CTA's x columns; bf(x) and bf(z_bar)
+    join the inputs in bf16, whole; the state adds the x rows' accumulators
+    and x_bar's sum over the blocks."""
     L = len(widths) - 1
-    lw = [_cluster_cols(n) for n in widths]
-    slices = sum(2 * CLUSTER_CTAS * lw[k] * (lw[k + 1] + 8) for k in range(L - 1))
-    inputs = 8 + 2 * 16 * round16(widths[0]) + 16 + sum(lw[1:L]) + lw[L - 1]
-    stage = max(widths[k] * lw[k + 1] for k in range(L - 1))
+    ctas = NAIS_CLUSTER_CTAS if nais else CLUSTER_CTAS
+    lw = [_cluster_cols(n, ctas) for n in widths]
+    n0p = round16(widths[0])
+    blocks = range(1, L - 1) if nais else range(0)
+    xrows = ctas * lw[0]  # U_k's rows in a block's column slice
+    slices = (sum(2 * ctas * lw[k] * (lw[k + 1] + 8) for k in range(L - 1))
+              + sum(2 * xrows * (lw[k + 1] + 8) for k in blocks))
+    inputs = (8 + 2 * 16 * n0p + 16 + sum(lw[1:L]) + lw[L - 1]
+              + (16 * (n0p + 8) if nais else 0))
+    stage = max(((n0p if k in blocks else 0) + widths[k]) * lw[k + 1] for k in range(L - 1))
     lwmax = max(lw[:L])
-    operands = 3 * CLUSTER_CTAS * 16 * (lwmax + 8)
-    steady = 2 * operands + 4 * (2 * 16 * sum(lw[1:L]) + 4 * 16 * lwmax)
-    return 2 * slices + 4 * inputs + max(steady, 4 * 2 * stage)
+    operands = 3 * ctas * 16 * (lwmax + 8)
+    state = 2 * 16 * sum(lw[1:L]) + 4 * 16 * lwmax + (2 * 16 * lw[0] if nais else 0)
+    return 2 * slices + 4 * inputs + max(2 * operands + 4 * state, 4 * 2 * stage)
 
 
 def bwd_takes_cluster(widths: Sequence[int], B: int, nais: bool = False) -> bool:
     """Whether K2's row chain runs on thread-block clusters for B rows of a
     net of these widths: where a CTA's slices and state fit its shared
-    memory and B is at most ``CLUSTER_MAX_ROWS``. Both row chains give the
-    same bits; this chooses the faster. A NAIS-Net's blocks take the
-    one-block design only: never."""
-    return (not nais and B <= CLUSTER_MAX_ROWS
-            and bwd_cluster_smem_bytes(widths) <= MAX_SMEM)
+    memory (:func:`bwd_cluster_smem_bytes`) and B is at most
+    ``CLUSTER_MAX_ROWS`` (a NAIS-Net, on clusters of 16 CTAs:
+    ``NAIS_CLUSTER_MAX_ROWS``). Both row chains give the same bits; this
+    chooses the faster. The NAIS-Net's [101, 256×4, 1] takes 195,488 bytes a
+    CTA, against 223,968 for the MLP of those widths on 8: its blocks' slices
+    are wider by U_k's rows, its clusters twice as wide."""
+    limit = NAIS_CLUSTER_MAX_ROWS if nais else CLUSTER_MAX_ROWS
+    return B <= limit and bwd_cluster_smem_bytes(widths, nais) <= MAX_SMEM
 
 
 def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
                 u_bar: Tensor, z_bar: Tensor, widths: Sequence[int]):
     """K2 through the C entry point ``entry`` (``mlp_u_z_bwd``, the one-block
-    row chain, ``mlp_u_z_bwd_cluster`` or ``mlp_u_z_bwd_nais``) on checked
-    CUDA inputs; the gradients come back as views of one flat buffer."""
+    row chain, or ``mlp_u_z_bwd_cluster``; ``mlp_u_z_bwd_nais`` or
+    ``mlp_u_z_bwd_nais_cluster`` for the NAIS-Net) on checked CUDA inputs;
+    the gradients come back as views of one flat buffer."""
     from dnnpde_tpu_torch.ops import _build
 
     B, n0 = x.shape
@@ -308,7 +332,7 @@ def _bwd_launch(entry: str, Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tenso
     lib = _lib("mlp_u_z_bwd")
     widths_c = _build.int_array(widths)
     # the weight gradients' bf16 operands and the per-tile column sums
-    size = lib.mlp_u_z_bwd_nais_scratch_bytes if entry.endswith("_nais") else \
+    size = lib.mlp_u_z_bwd_nais_scratch_bytes if "_nais" in entry else \
         lib.mlp_u_z_bwd_scratch_bytes
     scratch = torch.empty(size(widths_c, len(Ws), B), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
@@ -344,7 +368,7 @@ def mlp_u_z_bwd(Ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"mlp_u_z_bwd runs on CUDA or CPU tensors, got {x.device}")
     clustered = bwd_takes_cluster(widths, B, nais)
-    entry = "mlp_u_z_bwd_nais" if nais else "mlp_u_z_bwd_cluster" if clustered else "mlp_u_z_bwd"
+    entry = "mlp_u_z_bwd" + ("_nais" if nais else "") + ("_cluster" if clustered else "")
     out = _bwd_launch(entry, Ws, bs, x, u_bar, z_bar, widths)
     if B > 0:
         tracing.count("ops.mlp_u_z_bwd.calls")

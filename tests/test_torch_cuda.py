@@ -20,6 +20,7 @@ from dnnpde_tpu_torch import tracing
 from dnnpde_tpu_torch.ops.fused_net_u import FusedMlpUZ, FusedNaisUZ
 from dnnpde_tpu_torch.ops.mlp_kernel import (
     MAX_SMEM,
+    NAIS_CLUSTER_MAX_ROWS,
     _bwd_launch,
     _lib,
     bwd_cluster_smem_bytes,
@@ -406,15 +407,15 @@ def test_the_mlps_kernels_give_the_bits_they_gave(cuda_device, B):
     assert (_digest([u, z]), _digest([*W_bars, *b_bars, x_bar])) == MLP_DIGESTS[B]
 
 
-def _nais_full_width(device, B, seed):
-    """A NAIS-Net at [101, 256×4, 1] in the kernels' layout (the port's net
-    drawn from ``seed``, biases N(0, 0.1²), its projections through
-    ``extract_nais_params``), and inputs of B rows."""
+def _nais_full_width(device, B, seed, layers=FULL):
+    """A NAIS-Net at [101, 256×4, 1] (or ``layers``) in the kernels' layout
+    (the port's net drawn from ``seed``, biases N(0, 0.1²), its projections
+    through ``extract_nais_params``), and inputs of B rows."""
     from dnnpde_tpu_torch.nets.networks import build_network
     from dnnpde_tpu_torch.params import extract_nais_params
 
     gen = torch.Generator().manual_seed(seed)
-    net = build_network("Naisnet", FULL, "Sine", generator=gen, device=device)
+    net = build_network("Naisnet", layers, "Sine", generator=gen, device=device)
     with torch.no_grad():
         for p in net.parameters():
             if p.dim() == 1:
@@ -422,7 +423,7 @@ def _nais_full_width(device, B, seed):
         Ws, bs = (tuple(t.detach().contiguous() for t in ts) for ts in extract_nais_params(net))
     rng = np.random.default_rng(seed)
     x, u_bar, z_bar = _on(device, [rng.normal(size=s).astype(np.float32)
-                                   for s in ((B, FULL[0]), (B, 1), (B, FULL[0]))])
+                                   for s in ((B, layers[0]), (B, 1), (B, layers[0]))])
     return Ws, bs, x, u_bar, z_bar
 
 
@@ -434,18 +435,19 @@ def _nais_counts():
 @pytest.mark.parametrize("B", [1, 17, 100, 129, 512])
 def test_nais_k1_and_k2_match_their_plain_versions_and_repeat_bitwise(cuda_device, B):
     """K1's and K2's NAIS forms against their plain versions, twice each:
-    close, and the same bits both times. K2 runs the block on its one-block
-    row chain only (``bwd_takes_cluster`` is false for it at every B), so no
-    second design's bits are compared; its NAIS calls count as K2 calls and
-    none as clustered."""
+    close, and the same bits both times. K2's row chain runs on clusters of
+    16 CTAs up to ``NAIS_CLUSTER_MAX_ROWS`` (the basket's B = 100 among
+    them) and on one block a tile above; its NAIS calls count as K2 calls,
+    and those on clusters as clustered."""
     Ws, bs, x, u_bar, z_bar = _nais_full_width(cuda_device, B, seed=B)
     assert check_mlp(Ws, bs, x.device, nais=True) == FULL
-    assert not bwd_takes_cluster(FULL, B, nais=True)
+    clustered = bwd_takes_cluster(FULL, B, nais=True)
+    assert clustered == (B <= NAIS_CLUSTER_MAX_ROWS)
     before = _nais_counts()
     fwd = [mlp_u_z_fwd(Ws, bs, x, nais=True) for _ in range(2)]
     bwd = [mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True) for _ in range(2)]
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_nais_counts(), before)] == [2, 2, 2, 2, 0]
+    assert [a - b for a, b in zip(_nais_counts(), before)] == [2, 2, 2, 2, 2 * clustered]
     ref = [*mlp_u_z_fwd_reference(Ws, bs, x, nais=True),
            *(lambda o: [*o[0], *o[1], o[2]])(
                mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=True))]
@@ -453,6 +455,55 @@ def test_nais_k1_and_k2_match_their_plain_versions_and_repeat_bitwise(cuda_devic
     for a, again, r in zip(*runs, ref, strict=True):
         _assert_kernel_close(a, r)
         assert torch.equal(a, again)
+
+
+@pytest.mark.parametrize("B", [1, 17, 100, NAIS_CLUSTER_MAX_ROWS, NAIS_CLUSTER_MAX_ROWS + 1])
+def test_nais_k2_cluster_chain_gives_the_one_block_chains_bits(cuda_device, B):
+    """K2's NAIS form with its row chain on clusters of 16 CTAs
+    (``mlp_u_z_bwd_nais_cluster``) and on one block (``mlp_u_z_bwd_nais``),
+    each through its C entry point twice, and through the wrapper: the same
+    bits every time. The wrapper takes the cluster up to
+    ``NAIS_CLUSTER_MAX_ROWS`` and counts it in ``cluster_calls``; the C side's
+    shared memory of a CTA is the wrapper's."""
+    Ws, bs, x, u_bar, z_bar = _nais_full_width(cuda_device, B, seed=1000 + B)
+    widths = check_mlp(Ws, bs, x.device, nais=True)
+    runs = [_bwd_launch(entry, Ws, bs, x, u_bar, z_bar, widths)
+            for entry in ("mlp_u_z_bwd_nais", "mlp_u_z_bwd_nais_cluster") * 2]
+    clustered = bwd_takes_cluster(widths, B, nais=True)
+    assert clustered == (B <= NAIS_CLUSTER_MAX_ROWS)
+    before = _nais_counts()
+    runs.append(mlp_u_z_bwd(Ws, bs, x, u_bar, z_bar, nais=True))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_nais_counts(), before)] == [0, 0, 1, 1, int(clustered)]
+    smem = _lib("mlp_u_z_bwd").mlp_u_z_bwd_nais_cluster_smem_bytes(
+        (ctypes.c_int * len(widths))(*widths), len(Ws))
+    assert smem == bwd_cluster_smem_bytes(widths, nais=True) <= MAX_SMEM
+    leaves = [[*o[0], *o[1], o[2]] for o in runs]
+    for one_block, *others in zip(*leaves, strict=True):
+        assert bool(torch.isfinite(one_block).all())
+        assert all(torch.equal(one_block, t) for t in others)
+
+
+# Ragged NAIS-Nets on clusters of 16 CTAs: 40 hidden columns fill five
+# tiles and part of a sixth (ten CTAs own none), the 5-wide input one x tile;
+# a single block at full width.
+NAIS_RAGGED = [([5, 40, 40, 40, 1], 17), ([5, 40, 40, 40, 1], 100), ([101, 256, 256, 1], 100)]
+
+
+@pytest.mark.parametrize("layers, B", NAIS_RAGGED)
+def test_nais_k2_cluster_chain_at_ragged_shapes(cuda_device, layers, B):
+    """The two row chains of K2's NAIS form give the same bits at ragged
+    widths, and stay close to its plain version."""
+    Ws, bs, x, u_bar, z_bar = _nais_full_width(cuda_device, B, seed=B + len(layers), layers=layers)
+    widths = check_mlp(Ws, bs, x.device, nais=True)
+    assert bwd_takes_cluster(widths, B, nais=True)
+    runs = [_bwd_launch(entry, Ws, bs, x, u_bar, z_bar, widths)
+            for entry in ("mlp_u_z_bwd_nais", "mlp_u_z_bwd_nais_cluster")]
+    ref = mlp_u_z_bwd_reference(Ws, bs, x, u_bar, z_bar, nais=True)
+    torch.cuda.synchronize()
+    for one_block, chain, r in zip(*([*o[0], *o[1], o[2]] for o in (*runs, ref)), strict=True):
+        _assert_kernel_close(chain, r)
+        assert torch.equal(one_block, chain)
 
 
 def test_nais_k2_recomputes_k1s_forward_exactly(cuda_device):

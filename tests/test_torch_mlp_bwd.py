@@ -15,6 +15,7 @@ from dnnpde_tpu.ops.fused_net_u import _fused_bwd
 from dnnpde_tpu.ops.mlp_kernel import mlp_u_z_bwd_pallas
 from dnnpde_tpu_torch.ops.mlp_kernel import (
     MAX_SMEM,
+    NAIS_CLUSTER_MAX_ROWS,
     bwd_cluster_smem_bytes,
     bwd_takes_cluster,
     mlp_u_z_bwd,
@@ -139,3 +140,31 @@ def test_k2_row_chain_path_is_a_function_of_shape(name):
     assert bwd_takes_cluster(widths, B) is taken
     if smem > MAX_SMEM:  # slices too large for a CTA: the one-block row chain at any B
         assert not bwd_takes_cluster(widths, 1)
+
+
+# The NAIS-Net's row chain on clusters of 16 CTAs: taken where a CTA's
+# slices (a block's column slice holds U_k's rows too) and state fit 227 KB
+# and B is at most NAIS_CLUSTER_MAX_ROWS. (widths, B, bytes of a CTA, taken)
+NAIS = [101, 256, 256, 256, 256, 1]
+NAIS_CLUSTER_SHAPES = {
+    "basket-b1": (NAIS, 1, 195488, True),
+    "basket-b100": (NAIS, 100, 195488, True),
+    "basket-crossover": (NAIS, NAIS_CLUSTER_MAX_ROWS, 195488, True),
+    "basket-past-crossover": (NAIS, NAIS_CLUSTER_MAX_ROWS + 1, 195488, False),
+    "basket-b2048": (NAIS, 2048, 195488, False),
+    "one-block-b100": ([101, 256, 256, 1], 100, 118560, True),
+    "ragged-5-40": ([5, 40, 40, 40, 1], 17, 75488, True),
+    # 512 wide: a block's slices alone take 180 KB a CTA
+    "wide-512": ([101, 512, 512, 512, 1], 100, 407648, False),
+    # five blocks: 196,608 bytes of slices
+    "deeper-b100": ([101, 256, 256, 256, 256, 256, 256, 1], 100, 273440, False),
+}
+
+
+@pytest.mark.parametrize("name", list(NAIS_CLUSTER_SHAPES))
+def test_nais_k2_row_chain_path_is_a_function_of_shape(name):
+    widths, B, smem, taken = NAIS_CLUSTER_SHAPES[name]
+    assert bwd_cluster_smem_bytes(widths, nais=True) == smem
+    assert bwd_takes_cluster(widths, B, nais=True) is taken
+    if smem > MAX_SMEM:  # slices too large for a CTA: the one-block row chain at any B
+        assert not bwd_takes_cluster(widths, 1, nais=True)

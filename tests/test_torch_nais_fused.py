@@ -159,7 +159,9 @@ def test_the_wrappers_take_only_nais_weights():
     Wk, bk = (tuple(w.detach() for w in ws) for ws in extract_nais_params(net))
     x = torch.cat([t, X], dim=-1)
     assert mk.check_mlp(Wk, bk, x.device, nais=True) == LAYERS
-    assert not mk.bwd_takes_cluster(LAYERS, M, nais=True)  # the one-block row chain
+    # K2's row chain on clusters of 16 CTAs at this batch, on one block above the crossover
+    assert mk.bwd_takes_cluster(LAYERS, M, nais=True)
+    assert not mk.bwd_takes_cluster(LAYERS, mk.NAIS_CLUSTER_MAX_ROWS + 1, nais=True)
     with pytest.raises(ValueError, match="expected"):
         mk.mlp_u_z_fwd(Wk, bk, x)  # the blocks' [U; 0; -A] is no MLP layer
     with pytest.raises(ValueError, match="need 3"):
