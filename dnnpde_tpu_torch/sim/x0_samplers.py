@@ -12,7 +12,7 @@ Both samplers are mean-preserving around ``x0``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -64,3 +64,16 @@ def gaussian_x0(x0, scale: float) -> X0Sampler:
         return x0.on(dev)[None, :] + scale * z
 
     return sample
+
+
+def draw_x0(sampler: Optional[X0Sampler], generator: torch.Generator, M: int,
+            antithetic: bool, dtype: torch.dtype) -> Optional[Tensor]:
+    """A training batch's X0 (M, D) from ``sampler`` (None without one):
+    under ``antithetic`` M/2 states tiled over both halves, so each mirrored
+    pair of paths shares its start."""
+    if sampler is None:
+        return None
+    if antithetic:
+        half = sampler(generator, M // 2).to(dtype)
+        return torch.cat([half, half], dim=0)
+    return sampler(generator, M).to(dtype)

@@ -45,10 +45,10 @@ from dnnpde_tpu_torch.nets import build_network
 from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import default_device
 from dnnpde_tpu_torch.sim.brownian import brownian_increments, time_grid
+from dnnpde_tpu_torch.sim.x0_samplers import draw_x0
 from dnnpde_tpu_torch.solver.bsde import SolverConfig, make_loss_fn, make_net_u
-from dnnpde_tpu_torch.train.diagnostics import anomalies_checked
+from dnnpde_tpu_torch.train.graphed import CapturedChunk, assign_state
 from dnnpde_tpu_torch.train.optimizers import Optimizer
-from dnnpde_tpu_torch.train.trainer import _assign
 
 Tensor = torch.Tensor
 
@@ -96,16 +96,16 @@ def replica_net(stacked: dict, k: int, layers: Sequence[int], mode: str = "FC",
     return net
 
 
-class ReplicaProgram:
+class ReplicaProgram(CapturedChunk):
     """The training iteration of K replicas on stacked tensors that keep
     their addresses (see the module docstring). ``capacity`` iterations of
     (K,) losses and Y0s are logged per chunk, at a device-side index.
 
     ``step(dWs, X0, noise)`` is one eager iteration on given draws (tests
     feed recorded ones); ``iteration()`` draws from the replicas' generators
-    and logs; ``run(k)`` runs k iterations, on a CUDA device as replays of
-    one captured iteration (the first iteration of the program is an eager
-    warm-up, the second is captured)."""
+    and logs; ``run(k)`` runs k iterations of the captured chunk.
+    ``compile_time``: the host seconds of the first eager iteration, or of
+    the warm-up and capture on a card."""
 
     def __init__(
         self,
@@ -176,16 +176,11 @@ class ReplicaProgram:
         self._noise_shapes = ([s for _ in range(self.N + 1) for s in self.net.noise_shapes(self.M)]
                               if cfg.stochastic_net else [])
 
-        self.capacity = int(capacity)
-        self.losses = torch.zeros((self.capacity, K), dtype=torch.float32, device=dev)
-        self.y0s = torch.zeros((self.capacity, K), dtype=torch.float32, device=dev)
-        self.idx = torch.zeros(1, dtype=torch.long, device=dev)
+        super().__init__(dev, torch.float32, int(capacity), (K,))
         self.it = torch.zeros((), dtype=torch.long, device=dev)  # iterations since the start
+        self._runs = 0  # iterations run by ``run``: the spans' numbering
         self.lr_switch: Optional[tuple[Tensor, Tensor, Tensor]] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.warm = False
         self.compile_time = 0.0
-        self._side_stream = None
 
     # ------------------------------------------------------------------ state
     def _fresh_state(self) -> dict:
@@ -201,7 +196,7 @@ class ReplicaProgram:
         each ``Trainer.train`` call with a new rate starts afresh) and the
         rate(s), one number or one per replica, copied into ``lr``."""
         with torch.no_grad():
-            _assign(self.opt_state, self._fresh_state())
+            assign_state(self.opt_state, self._fresh_state())
             self.lr.copy_(torch.as_tensor(learning_rates, dtype=torch.float32).expand(self.K))
 
     # -------------------------------------------------------------- iteration
@@ -236,12 +231,9 @@ class ReplicaProgram:
         for g in self.generators:
             dWs.append(brownian_increments(g, M, N, p.noise_dim, p.T / N, None, torch.float32,
                                            antithetic=self.antithetic).transpose(0, 1))
-            if self.x0_sampler is not None:
-                if self.antithetic:
-                    half = self.x0_sampler(g, M // 2).to(torch.float32)
-                    X0s.append(torch.cat([half, half], dim=0))
-                else:
-                    X0s.append(self.x0_sampler(g, M).to(torch.float32))
+            X0 = draw_x0(self.x0_sampler, g, M, self.antithetic, torch.float32)
+            if X0 is not None:
+                X0s.append(X0)
             noise.append([torch.rand(s, generator=g, dtype=torch.float32, device=self.device)
                           for s in self._noise_shapes])
         X0 = torch.stack(X0s) if X0s else None
@@ -259,7 +251,7 @@ class ReplicaProgram:
         with torch.no_grad():
             for n, u in zip(self._names, updates):
                 self.params[n].add_(u)
-            _assign(self.opt_state, new)
+            assign_state(self.opt_state, new)
             if self.ema is not None:
                 a = 1.0 - self.ema_decay
                 for n in self._names:
@@ -274,57 +266,30 @@ class ReplicaProgram:
             self.lr.copy_(torch.where(self.it < n1, lr1, lr2))
         loss, y0 = self.step(*self.draw())
         with torch.no_grad():
-            self.losses.index_copy_(0, self.idx, loss[None])
-            self.y0s.index_copy_(0, self.idx, y0[None])
-            self.idx.add_(1)
+            self.log(loss, y0)
             self.it.add_(1)
-
-    def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        try:
-            with torch.cuda.graph(graph, stream=self._side_stream):
-                self.iteration()
-        except RuntimeError as e:
-            raise RuntimeError(
-                "capturing the replica iteration into a CUDA graph failed; the iteration "
-                "must run on the device without host reads or synchronization") from e
-        self.graph = graph
 
     def run(self, k: int) -> None:
         """k iterations, logged from index 0 (k ≤ ``capacity``)."""
         if k > self.capacity:
             raise ValueError(f"a chunk of {k} iterations exceeds the capacity {self.capacity}")
-        self.idx.zero_()
-        if self.device.type != "cuda" or anomalies_checked():
-            for _ in range(k):
-                t0 = time.perf_counter()
-                self.iteration()
-                if not self.warm:
-                    self.compile_time, self.warm = time.perf_counter() - t0, True
-            return
-        done = 0
-        with torch.cuda.device(self.device):
-            if self.graph is None and k > 0:
-                torch.cuda.synchronize(self.device)
-                t0 = time.perf_counter()
-                if self._side_stream is None:
-                    self._side_stream = torch.cuda.Stream(self.device)
-                main = torch.cuda.current_stream(self.device)
-                if not self.warm:  # the warm-up: a real iteration, eager, on the side stream
-                    self._side_stream.wait_stream(main)
-                    with torch.cuda.stream(self._side_stream):
-                        self.iteration()
-                    main.wait_stream(self._side_stream)
-                    self.warm = True
-                    done = 1
-                if done < k:
-                    self._capture()
-                torch.cuda.synchronize(self.device)
+        self.iterate(self.iteration, k, self._runs, self.generators)
+        self._runs += k
+
+    def _eager(self, body, k: int) -> None:
+        for _ in range(k):
+            t0 = time.perf_counter()
+            body()
+            if not self.compile_time:
                 self.compile_time = time.perf_counter() - t0
-            for _ in range(k - done):
-                self.graph.replay()
+
+    def _set_up(self, body, k: int, it: int, generators) -> int:
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        done = super()._set_up(body, k, it, generators)
+        torch.cuda.synchronize(self.device)
+        self.compile_time = time.perf_counter() - t0
+        return done
 
     def logs(self, k: int) -> tuple[np.ndarray, np.ndarray]:
         """The chunk's (k, K) losses and Y0s on the host."""

@@ -84,6 +84,7 @@ from dnnpde_tpu_torch.pde.base import PDEProblem
 from dnnpde_tpu_torch.runtime import default_device, full_f32_matmul
 from dnnpde_tpu_torch.sim.brownian import brownian_increments, brownian_paths, time_grid
 from dnnpde_tpu_torch.sim.correlation import cholesky_factor, generate_correlation_matrix
+from dnnpde_tpu_torch.sim.x0_samplers import draw_x0
 from dnnpde_tpu_torch.solver.bsde import (
     RolloutResult,
     SolverConfig,
@@ -92,7 +93,7 @@ from dnnpde_tpu_torch.solver.bsde import (
     make_path_loss_fn,
 )
 from dnnpde_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
-from dnnpde_tpu_torch.train.diagnostics import anomalies_checked
+from dnnpde_tpu_torch.train.graphed import CapturedChunk, assign_state, clone_state
 from dnnpde_tpu_torch.train.optimizers import LBFGS, LearningRate, build_optimizer
 from dnnpde_tpu_torch.train.schedules import TimeStepRefinement
 
@@ -122,20 +123,6 @@ def scaled_lr(width: int, base_lr: float = 1e-3, base_width: int = 256) -> float
     return base_lr * base_width / float(width)
 
 
-def _assign(dst: dict, src: dict, ok: Optional[Tensor] = None) -> None:
-    """Copy optimizer state ``src`` into the tensors of ``dst`` (where
-    ``ok``, when given)."""
-    for key, value in src.items():
-        pairs = zip(dst[key], value) if isinstance(value, list) else [(dst[key], value)]
-        for d, s in pairs:
-            d.copy_(s if ok is None else torch.where(ok, s, d))
-
-
-def _clone_state(state: dict) -> dict:
-    return {k: [x.clone() for x in v] if isinstance(v, list) else v.clone()
-            for k, v in state.items()}
-
-
 class _NoiseTape:
     """A stochastic net's noise for one batch that is evaluated more than
     once (LBFGS's linesearch, ``polish``'s frozen batch): the i-th draw after
@@ -156,35 +143,22 @@ class _NoiseTape:
         return self
 
 
-class _Chunk:
-    """The training iteration of one (N, M, optimizer, features) on buffers
-    that keep their addresses: the counterpart of the JAX Trainer's jitted
-    chunk (``_make_chunk``).
-
-    The chunk owns the time grid of its N, the per-iteration loss and Y0
-    buffers (``capacity`` iterations, written at the device-side index
-    ``idx``) and, with ``track_best``, the chunk's best loss and its (X, Y)
-    paths. On a CUDA device the first iteration it runs is eager, as the
-    warm-up that capture needs (autograd, cuBLAS workspaces and the kernels'
-    first-use load run outside the capture), the second is captured into
-    ``graph`` and replayed at once, and every later iteration is a replay;
-    the warm-up is an iteration of the run, not an extra one."""
+class _Chunk(CapturedChunk):
+    """The captured iterations of one (N, M, optimizer, features), the
+    counterpart of the JAX Trainer's jitted chunk (``_make_chunk``): beside
+    the log buffers, the time grid of its N and, with ``track_best``, the
+    chunk's best loss and its (X, Y) paths."""
 
     def __init__(self, trainer: "Trainer", N: int, capacity: int):
         dev, dt, M = trainer.device, trainer.dtype, trainer.M
         self.N = N
-        self.capacity = capacity
         self.ts = time_grid(M, N, trainer.problem.T, dt, dev).transpose(0, 1)
-        self.losses = torch.zeros(capacity, dtype=dt, device=dev)
-        self.y0s = torch.zeros(capacity, dtype=dt, device=dev)
-        self.idx = torch.zeros(1, dtype=torch.long, device=dev)
+        super().__init__(dev, dt, capacity)
         if trainer.track_best:
             D = trainer.problem.dim
             self.best_loss = torch.full((), float("inf"), dtype=dt, device=dev)
             self.best_X = torch.zeros((M, N + 1, D), dtype=dt, device=dev)
             self.best_Y = torch.zeros((M, N + 1, 1), dtype=dt, device=dev)
-        self.warm = False
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
 
 
 class Trainer:
@@ -397,7 +371,6 @@ class Trainer:
         self._ema: Optional[torch.nn.Module] = None  # the live shadow, or None
         self._ema_store: Optional[torch.nn.Module] = None  # its tensors, kept across resets
         self._chunk_cache: dict[tuple, _Chunk] = {}
-        self._side_stream = None
 
     def _init_net(self, seed: int) -> torch.nn.Module:
         return build_network(
@@ -415,7 +388,7 @@ class Trainer:
         self.generator.manual_seed(seed + 1)
         if self._opt_state is not None:  # re-initialized as the next train() would
             with torch.no_grad():
-                _assign(self._opt_state, self._tx.init(self._params))
+                assign_state(self._opt_state, self._tx.init(self._params))
         self._ema = None
         self._next_it = 0
         self.training_loss, self.iteration, self.y0_log = [], [], []
@@ -437,7 +410,7 @@ class Trainer:
         self._load_full(model_sharding.full_state_dict(other.net))
         with torch.no_grad():
             if self._opt_state is not None:
-                _assign(self._opt_state, self._tx.init(self._params))
+                assign_state(self._opt_state, self._tx.init(self._params))
         self._set_ema(other._ema)
         self.generator.set_state(other.generator.get_state())
         self._next_it = other._next_it
@@ -502,27 +475,18 @@ class Trainer:
         )
         return dW.transpose(0, 1)
 
-    def _initial_states(self) -> Tensor:
-        """The batch's X0 (M, D): ``problem.x0`` broadcast, or a fresh draw
-        of ``x0_sampler`` from the generator (M/2 states tiled over both
-        halves under ``antithetic``)."""
-        if self.x0_sampler is None:
-            return self._X0
-        if self.antithetic:
-            half = self.x0_sampler(self.generator, self.M // 2).to(self.dtype)
-            return torch.cat([half, half], dim=0)
-        return self.x0_sampler(self.generator, self.M).to(self.dtype)
-
     def _noise(self, shape) -> Tensor:
         """U[0, 1) of ``shape`` from the generator: a stochastic net's noise
         at a training evaluation, drawn after the batch's increments and X0."""
         return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
 
-    def _batch(self) -> tuple[Tensor, Tensor, Tensor]:
-        """One training batch in the loss's layout: (ts, dWs, X0), the
-        increments drawn before X0."""
-        dWs = self._increments(self.N)
-        return self._ts, dWs, self._initial_states()
+    def _batch(self, chunk: Optional[_Chunk] = None) -> tuple[Tensor, Tensor, Tensor]:
+        """One training batch on the trainer's N (or ``chunk``'s) in the
+        loss's layout: (ts, dWs, X0), the increments drawn before X0."""
+        ts, N = (self._ts, self.N) if chunk is None else (chunk.ts, chunk.N)
+        dWs = self._increments(N)
+        X0 = draw_x0(self.x0_sampler, self.generator, self.M, self.antithetic, self.dtype)
+        return ts, dWs, self._X0 if X0 is None else X0
 
     # ------------------------------------------------------------- train step
     def _select_optimizer(self, optimizer_type: str, learning_rate: LearningRate,
@@ -552,7 +516,7 @@ class Trainer:
             self._opt_state = state
         else:
             with torch.no_grad():
-                _assign(self._opt_state, state)
+                assign_state(self._opt_state, state)
         self._tx = tx
         self._opt_sig = sig
 
@@ -641,7 +605,7 @@ class Trainer:
                     p.add_(u)
                 else:
                     p.copy_(torch.where(ok, p + u, p))
-            _assign(self._opt_state, state, ok)
+            assign_state(self._opt_state, state, ok)
             if self._ema is not None:
                 a = 1.0 - self.ema_decay
                 for e, p in zip(self._ema.parameters(), params):
@@ -687,12 +651,9 @@ class Trainer:
 
     def _iteration(self, chunk: _Chunk) -> None:
         """The body of a chunk: draw, step, and log into the chunk's buffers."""
-        dWs = self._increments(chunk.N)
-        res = self._update(chunk.ts, dWs, self._initial_states(), paths=self.track_best)
+        res = self._update(*self._batch(chunk), paths=self.track_best)
         with torch.no_grad():
-            chunk.losses.index_copy_(0, chunk.idx, res.loss.reshape(1))
-            chunk.y0s.index_copy_(0, chunk.idx, res.Y0.reshape(1))
-            chunk.idx.add_(1)
+            chunk.log(res.loss, res.Y0)
             if self.track_best:
                 better = res.loss < chunk.best_loss
                 chunk.best_loss.copy_(torch.where(better, res.loss, chunk.best_loss))
@@ -711,60 +672,13 @@ class Trainer:
             chunk = self._chunk_cache[sig] = _Chunk(self, N, k)
         return chunk
 
-    def _capture(self, chunk: _Chunk, it: int) -> None:
-        """Capture one iteration of ``chunk`` into a CUDA graph on a side
-        stream. The trainer's generator is registered with the graph, so each
-        replay draws what the next eager call would draw. A capture that
-        fails raises; nothing falls back to eager."""
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        try:
-            with tracing.span("dnnpde.train.capture", it=it), \
-                    torch.cuda.graph(graph, stream=self._side_stream):
-                self._iteration(chunk)
-        except RuntimeError as e:
-            raise RuntimeError(
-                "capturing the training iteration into a CUDA graph failed; the iteration "
-                "must run on the device without host reads or synchronization"
-            ) from e
-        chunk.graph = graph
-        tracing.count("train.graph_captures")
-
     def _run_chunk(self, chunk: _Chunk, k: int, it: int) -> None:
-        """Run k iterations of ``chunk``, the first numbered ``it`` (replays
-        on a CUDA device)."""
-        chunk.idx.zero_()
+        """Run k iterations of ``chunk``, the first numbered ``it``; eagerly
+        for LBFGS and over groups that are not all NCCL."""
         if self.track_best:
             chunk.best_loss.fill_(float("inf"))
-        if (self.device.type != "cuda" or isinstance(self._tx, LBFGS) or not self._capturable
-                or anomalies_checked()):
-            with tracing.span("dnnpde.train.eager", iterations=k):
-                for _ in range(k):
-                    self._iteration(chunk)
-            tracing.count("train.eager_iterations", k)
-            return
-        done = 0
-        with torch.cuda.device(self.device):
-            if chunk.graph is None:
-                if self._side_stream is None:
-                    self._side_stream = torch.cuda.Stream(self.device)
-                main = torch.cuda.current_stream(self.device)
-                if not chunk.warm:  # the warm-up: a real iteration, eager, on the side stream
-                    with tracing.span("dnnpde.train.warm_up", it=it):
-                        self._side_stream.wait_stream(main)
-                        with torch.cuda.stream(self._side_stream):
-                            self._iteration(chunk)
-                        main.wait_stream(self._side_stream)
-                    tracing.count("train.eager_iterations")
-                    chunk.warm = True
-                    done = 1
-                if done < k:
-                    self._capture(chunk, it + done)
-            if done < k:
-                with tracing.span("dnnpde.train.replay", replays=k - done):
-                    for _ in range(k - done):
-                        chunk.graph.replay()
-                tracing.count("train.graph_replays", k - done)
+        chunk.iterate(lambda: self._iteration(chunk), k, it, [self.generator],
+                      eager=isinstance(self._tx, LBFGS) or not self._capturable)
 
     def _read_out(self, chunk: _Chunk, k: int) -> tuple:
         """Start copying a chunk's logs (and best state) to the host; read
@@ -896,14 +810,14 @@ class Trainer:
     def _snapshot(self) -> tuple:
         """Copies of (params, optimizer state, EMA) before a chunk."""
         ema = None if self._ema is None else [e.clone() for e in self._ema.parameters()]
-        return [p.detach().clone() for p in self._params], _clone_state(self._opt_state), ema
+        return [p.detach().clone() for p in self._params], clone_state(self._opt_state), ema
 
     def _restore(self, snap: tuple) -> None:
         params, state, ema = snap
         with torch.no_grad():
             for p, s in zip(self._params, params):
                 p.copy_(s)
-            _assign(self._opt_state, state)
+            assign_state(self._opt_state, state)
             if ema is not None:
                 for e, s in zip(self._ema.parameters(), ema):
                     e.copy_(s)
@@ -965,13 +879,8 @@ class Trainer:
         dWs = brownian_increments(gen, M, N, p.noise_dim, p.T / N, self.chol, self.dtype,
                                   antithetic=anti).transpose(0, 1)
         ts = time_grid(M, N, p.T, self.dtype, self.device).transpose(0, 1)
-        if self.x0_sampler is not None:
-            if anti:
-                half = self.x0_sampler(gen, M // 2).to(self.dtype)
-                X0 = torch.cat([half, half], dim=0)
-            else:
-                X0 = self.x0_sampler(gen, M).to(self.dtype)
-        else:
+        X0 = draw_x0(self.x0_sampler, gen, M, anti, self.dtype)
+        if X0 is None:
             X0 = p.x0.to(self.device, self.dtype).expand(M, p.dim)
         noise = _NoiseTape(
             lambda shape: torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device))
@@ -1056,7 +965,7 @@ class Trainer:
             opt_state = {k: model_sharding.slice_full(v, self._shard_dims, self.net)
                          if isinstance(v, list) else v for k, v in state["opt_state"].items()}
             with torch.no_grad():
-                _assign(self._opt_state, opt_state)
+                assign_state(self._opt_state, opt_state)
         self.training_loss = list(state["training_loss"])
         self.iteration = list(state["iteration"])
         self.y0_log = list(state.get("y0_log", []))

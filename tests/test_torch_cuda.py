@@ -745,6 +745,39 @@ def test_a_failed_capture_raises(cuda_device):
     assert chunk.warm and chunk.graph is None  # the warm-up ran; nothing replays eagerly
 
 
+def test_a_captured_replica_chunk_equals_eager_iterations(cuda_device):
+    """The replica program runs the Trainer's captured chunk: a K = 2 chunk
+    (an eager warm-up, a capture with both generators registered, replays)
+    against as many eager iterations from the same state, bit for bit."""
+    from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
+    from dnnpde_tpu_torch.train import ReplicaProgram
+
+    k = 6
+    captured, eager = (ReplicaProgram(BlackScholesBarenblatt(D=CHUNK_D), (0, 1), M=CHUNK_M,
+                                      N=CHUNK_N, layers=CHUNK_LAYERS, ema_decay=0.9,
+                                      capacity=k, device=cuda_device) for _ in range(2))
+    for prog in (captured, eager):
+        prog.new_phase(1e-3)
+    names = ("train.graph_captures", "train.graph_replays", "train.eager_iterations")
+    before = [tracing.counters().get(n, 0) for n in names]
+    captured.run(k)
+    assert [tracing.counters().get(n, 0) - b for n, b in zip(names, before)] == [1, k - 1, 1]
+    assert captured.graph is not None and captured.compile_time > 0
+    for _ in range(k):
+        eager.iteration()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.losses, eager.losses) and torch.equal(captured.y0s, eager.y0s)
+    for a, b in ((captured.params, eager.params), (captured.ema, eager.ema)):
+        for n in a:
+            assert torch.equal(a[n], b[n]), n
+    for key, v in captured.opt_state.items():
+        xs, ys = (v, eager.opt_state[key]) if isinstance(v, list) else ([v], [eager.opt_state[key]])
+        for x, y in zip(xs, ys):
+            assert torch.equal(x, y), key
+    for g, h in zip(captured.generators, eager.generators):
+        assert torch.equal(g.get_state(), h.get_state())
+
+
 # ---- the harness's nets and problems on the card -----------------------------
 
 

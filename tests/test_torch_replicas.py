@@ -38,7 +38,7 @@ from dnnpde_tpu.train.replicas import ReplicaResult as JaxReplicaResult
 from dnnpde_tpu.train.replicas import replica_values_at as jax_replica_values_at
 from dnnpde_tpu_torch.params import from_flax_params, from_flax_replicas
 from dnnpde_tpu_torch.pde import BlackScholesBarenblatt, CallOption1D
-from dnnpde_tpu_torch.sim import lognormal_x0
+from dnnpde_tpu_torch.sim import gaussian_x0, lognormal_x0
 from dnnpde_tpu_torch.solver import SolverConfig, make_loss_fn
 from dnnpde_tpu_torch.train import (
     ReplicaProgram,
@@ -273,6 +273,39 @@ def test_each_phase_restarts_the_optimizer_and_keeps_the_ema():
     assert all(float(m.abs().max()) == 0.0 for m in prog.opt_state["mu"])
     assert prog.lr.tolist() == pytest.approx([1e-4, 2e-4])
     assert all(torch.equal(ema[n], prog.ema[n]) for n in ema)
+
+
+SAMPLERS = {
+    "none": lambda prob: None,
+    "lognormal": lambda prob: lognormal_x0(prob.x0, 0.3),
+    "gaussian": lambda prob: gaussian_x0(prob.x0, 0.1),
+}
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("sampler", list(SAMPLERS))
+def test_the_trainer_polish_and_the_replicas_draw_the_same_x0(sampler, antithetic, monkeypatch):
+    """The Trainer's batch, ``polish``'s frozen batch and the replica
+    program's draw take the same X0 from the same generator state and leave
+    the generator in the same state: the order of draws that ties replica k
+    to ``Trainer(seed=k)``."""
+    prob, seed = CallOption1D(D=1), 3
+    kw = dict(M=M, N=N, layers=LAYERS, antithetic=antithetic, objective="local",
+              x0_sampler=SAMPLERS[sampler](prob), device="cpu")
+    tr = Trainer(prob, seed=seed, **kw)
+    _, _, x0 = tr._batch()
+    polished, frozen = Trainer(prob, seed=seed, **kw), []
+    monkeypatch.setattr(polished, "_polish_on", lambda ts, dWs, X0, *a, **k: frozen.append(X0))
+    polished.polish(n_iter=1, antithetic=antithetic)
+    prog = ReplicaProgram(prob, (seed,), **kw)
+    _, x0_replica, _ = prog.draw()
+    for other in (frozen[0], prog.X0 if x0_replica is None else x0_replica[0]):
+        assert torch.equal(other, x0)
+    if sampler != "none":
+        assert not torch.equal(x0[0], prob.x0)
+        assert torch.equal(x0[: M // 2], x0[M // 2:]) == antithetic
+    for g in (polished.generator, prog.generators[0]):
+        assert torch.equal(g.get_state(), tr.generator.get_state())
 
 
 def test_jax_stack_weights_are_distinct_per_replica():

@@ -3,8 +3,9 @@ CPU: with no profiler a span is one shared no-op that reads no clock and
 keeps nothing, while counters count; under ``profile_trace`` the trainer's
 chunk boundaries, the served requests and the rollouts land in the Chrome
 trace as ``user_annotation`` ranges and in the in-memory store with the same
-nesting, on the same clock; the trainer's counters count its eager
-iterations, and the kernel wrappers' counters stay at 0 on the CPU."""
+nesting, on the same clock; the trainer's and the replica program's
+counters count their eager iterations, and the kernel wrappers' counters
+stay at 0 on the CPU."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from dnnpde_tpu_torch.nets import MLP
 from dnnpde_tpu_torch.ops.rollout_kernel import predict_paths_fast
 from dnnpde_tpu_torch.pde import BlackScholesBarenblatt
 from dnnpde_tpu_torch.serve import export_solution, load_solution
-from dnnpde_tpu_torch.train import Trainer, profile_trace
+from dnnpde_tpu_torch.train import ReplicaProgram, Trainer, profile_trace
 
 KERNELS = ("mlp_u_z_fwd", "mlp_u_z_bwd", "rollout_paths", "gbm_terminal")
 TRAIN_SPANS = ("dnnpde.train", "dnnpde.train.chunk", "dnnpde.train.eager",
@@ -161,6 +162,20 @@ def test_the_trainer_counts_its_eager_iterations_and_no_kernel_call(n_iter, log_
     for name in ("train.graph_captures", "train.graph_replays",
                  *(f"ops.{k}.calls" for k in KERNELS)):
         assert after.get(name, 0) == before.get(name, 0) == 0, name
+
+
+def test_a_replica_run_counts_and_traces_its_eager_iterations(tmp_path):
+    D = 3
+    prog = ReplicaProgram(BlackScholesBarenblatt(D=D), (0, 1), M=8, N=4,
+                          layers=[D + 1, 16, 16, 1], capacity=3, device="cpu")
+    prog.new_phase(1e-3)
+    before = tracing.counters()
+    spans, _, _ = _traced(tmp_path, lambda: prog.run(3))
+    after = tracing.counters()
+    assert after.get("train.eager_iterations", 0) - before.get("train.eager_iterations", 0) == 3
+    for name in ("train.graph_captures", "train.graph_replays"):
+        assert after.get(name, 0) == before.get(name, 0) == 0, name
+    assert [(s.name, s.ids) for s in spans] == [("dnnpde.train.eager", {"iterations": 3})]
 
 
 def test_served_requests_are_numbered_with_their_rows(tmp_path):
